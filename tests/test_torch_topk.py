@@ -1,0 +1,181 @@
+"""Parity of the PyTorch port's masked top-m selections (kernels B3, B4) and
+the blob compaction tiers with the JAX package.
+
+The JAX side runs as its own tests run it: the Pallas kernels through the
+interpreter (``interpret=True``) and the CPU formulations the rest of the
+suite uses. On the CPU the port runs the plain versions of its kernels;
+``test_kernels_match_plain_on_card`` holds the CUDA kernels against them.
+"""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vision_processor_tpu.ops import blob as JB
+from vision_processor_tpu.ops import topk as JT
+from vision_processor_tpu_torch.ops import blob as B
+from vision_processor_tpu_torch.ops import topk as T
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small CPU tensors: one intra-op thread is as fast and leaves the
+    cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rows_case(seed=11, rows=24, width=300):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(rows, width)).astype(np.float32)
+    x[rng.uniform(size=x.shape) < 0.9] = -np.inf
+    x[3] = -np.inf                        # exhausted row
+    x[5, 7] = x[5, 200] = x[5, 250] = 2.5  # ties -> lower index first
+    x[8, :40] = 1.25                       # a run of ties longer than any m
+    return x
+
+
+@pytest.mark.parametrize("m", [3, 6, 8, 19])
+def test_row_topk_parity(m):
+    x = _rows_case()
+    pv, pi = T.row_topk(torch.from_numpy(x), m)
+    kv, ki = JT.row_topk(jnp.asarray(x), m, interpret=True)  # Pallas kernel
+    lv, li = jax.lax.top_k(jnp.asarray(x), m)                # JAX CPU path
+    pv, pi = pv.numpy(), pi.numpy()
+    np.testing.assert_array_equal(pv, np.asarray(kv))
+    valid = pv > -np.inf
+    np.testing.assert_array_equal(pi[valid], np.asarray(ki)[valid])
+    # the plain version is lax.top_k exactly, exhausted slots included
+    np.testing.assert_array_equal(pv, np.asarray(lv))
+    np.testing.assert_array_equal(pi, np.asarray(li))
+    assert pi.dtype == np.int32
+    assert list(pi[5, :min(m, 3)]) == [7, 200, 250][:min(m, 3)]
+
+
+def _query_case(seed, q=40, k=300):
+    rng = np.random.default_rng(seed)
+    qxy = rng.uniform(-1000, 1000, (q, 2)).astype(np.float32)
+    bxy = rng.uniform(-1000, 1000, (k, 2)).astype(np.float32)
+    r2 = (rng.uniform(100, 400, (q,)) ** 2).astype(np.float32)
+    rank = np.round(rng.uniform(0, 10, (k,)), 1).astype(np.float32)  # rank ties
+    rank[rng.uniform(size=k) < 0.2] = np.inf                         # invalid blobs
+    bxy[10] = bxy[11]                   # coincident blobs: exact d2 ties
+    qxy[0] = [5000.0, 5000.0]           # nothing in range: exhausted query
+    return qxy, r2, bxy, rank
+
+
+@pytest.mark.parametrize("m", [3, 8])
+@pytest.mark.parametrize("by_rank", [True, False])
+def test_query_select_parity(by_rank, m):
+    qxy, r2, bxy, rank = _query_case(7 + m)
+    pv, pi = T.query_select_topk(
+        torch.from_numpy(qxy), torch.from_numpy(r2), torch.from_numpy(bxy),
+        torch.from_numpy(rank), m=m, by_rank=by_rank)
+    kv, ki = JT.query_select_topk(jnp.asarray(qxy), jnp.asarray(r2), jnp.asarray(bxy),
+                                  jnp.asarray(rank), m=m, by_rank=by_rank,
+                                  interpret=True)
+    pv, pi, kv, ki = pv.numpy(), pi.numpy(), np.asarray(kv), np.asarray(ki)
+    valid = kv > -np.inf
+    np.testing.assert_array_equal(pv > -np.inf, valid)
+    assert not valid[0].any() and (pi[0] == 0).all()  # exhausted: index 0 repeats
+    if by_rank:
+        np.testing.assert_array_equal(pv, kv)
+        np.testing.assert_array_equal(pi[valid], ki[valid])
+    else:
+        # -d2 within 2 ulp (FMA contraction on either side); indices equal
+        # except where two candidates' d2 are within 2 ulp of each other
+        spacing = np.abs(np.spacing(kv[valid]))
+        assert (np.abs(pv[valid] - kv[valid]) <= 2 * spacing).all()
+        d2 = ((bxy[None, :, :] - qxy[:, None, :]) ** 2).sum(-1)
+        for qi, j in zip(*np.nonzero(valid & (pi != ki))):
+            a, b = d2[qi, pi[qi, j]], d2[qi, ki[qi, j]]
+            assert abs(a - b) <= 2 * np.spacing(np.float32(max(a, b)))
+
+
+def test_query_select_matches_iterative_argmax():
+    """The plain version is the JAX package's CPU formulation (iter_top_k
+    over the materialized score map), bit for bit."""
+    from vision_processor_tpu.models.detector import iter_top_k
+
+    qxy, r2, bxy, rank = _query_case(3)
+    for by_rank in (True, False):
+        pv, pi = T.query_select_topk(
+            torch.from_numpy(qxy), torch.from_numpy(r2), torch.from_numpy(bxy),
+            torch.from_numpy(rank), m=4, by_rank=by_rank)
+        dx = bxy[None, :, 0] - qxy[:, None, 0]
+        dy = bxy[None, :, 1] - qxy[:, None, 1]
+        d2 = dx * dx + dy * dy
+        ok = (d2 <= r2[:, None]) & (rank[None, :] < np.inf)
+        score = np.where(ok, -rank[None, :] if by_rank else -d2, -np.inf)
+        rv, ri = iter_top_k(jnp.asarray(score.astype(np.float32)), 4)
+        np.testing.assert_array_equal(pv.numpy(), np.asarray(rv))
+        np.testing.assert_array_equal(pi.numpy(), np.asarray(ri))
+
+
+def _tier_map(tier: str, h=40, w=200, max_blobs=64, seed=0):
+    """A -inf-masked map whose densest row selects the given tier."""
+    rng = np.random.default_rng(seed)
+    x = np.full((h, w), -np.inf, np.float32)
+    m = min(w, max(16, -(-4 * max_blobs // h)))
+    m_small = min(m, max(6, -(-max_blobs // h)))
+    per_row = {"small": m_small, "stage": m, "flat": m + 5}[tier]
+    for r in range(h):
+        n = per_row if r == 7 else rng.integers(0, m_small + 1)
+        cols = rng.choice(w, size=n, replace=False)
+        x[r, cols] = np.round(rng.uniform(0, 50, n), 1)  # value ties across rows
+    return x, m, m_small
+
+
+@pytest.mark.parametrize("tier", ["small", "stage", "flat"])
+def test_compact_masked_tiers(tier):
+    max_blobs = 64
+    x, m, m_small = _tier_map(tier, max_blobs=max_blobs)
+    kind, mm = B.compaction_tier(torch.from_numpy(x), max_blobs)
+    assert (kind, mm) == {"small": ("stage", m_small), "stage": ("stage", m),
+                          "flat": ("flat", 0)}[tier]
+    pv, pi = B._compact_masked(torch.from_numpy(x), max_blobs)
+    jv, ji = JB._compact_masked(jnp.asarray(x), max_blobs)
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+
+
+def test_wrappers_use_plain_version_on_cpu_only():
+    """A CPU tensor takes the plain version (no build); the kernel path
+    checks its arguments before it launches."""
+    from vision_processor_tpu_torch.ops import cuda as K
+
+    before = dict(K.LAUNCHES)
+    T.row_topk(torch.zeros(2, 5), 2)
+    assert K.LAUNCHES == before
+    with pytest.raises(ValueError):
+        K.require(torch.zeros(3), "x", torch.float32, 1)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card(cuda_device):
+    x = torch.from_numpy(_rows_case(rows=64, width=770)).to(cuda_device)
+    for m in (6, 19):
+        kv, ki = T.row_topk(x, m)
+        pv, pi = T._row_topk_plain(x, m)
+        assert torch.equal(kv, pv)
+        valid = pv > -np.inf
+        assert torch.equal(ki[valid], pi[valid])
+    qxy, r2, bxy, rank = (torch.from_numpy(a).to(cuda_device) for a in _query_case(5))
+    for by_rank, m in ((True, 8), (False, 3)):
+        kv, ki = T.query_select_topk(qxy, r2, bxy, rank, m=m, by_rank=by_rank)
+        pv, pi = T._query_select_plain(qxy, r2, bxy, rank, m, by_rank)
+        assert torch.equal(kv, pv)
+        valid = pv > -np.inf
+        assert torch.equal(ki[valid], pi[valid])

@@ -1,0 +1,1 @@
+"""app layer of the PyTorch port (mirrors vision_processor_tpu/app)."""

@@ -1,0 +1,174 @@
+"""vision_processor entry point, detection path (PyTorch port).
+
+Usage: python -m vision_processor_tpu_torch.app.main [config.yml] [--device cuda]
+
+Counterpart of vision_processor_tpu/app/main.py (reference
+src/main.cpp:251-427): read frame -> adopt geometry -> detection path ->
+multicast the detection frame, with the one-frame device/host overlap.
+The calibration path, the idle path (no geometry yet) and the debug
+outputs (H.264/JPEG stream, debug images, snapshots) are not ported yet;
+reaching one raises NotImplementedError naming the ROADMAP.md item that
+ports it.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import time
+from pathlib import Path
+
+import torch
+import yaml
+
+from vision_processor_tpu.net.udp import GCSocket, VisionSocket, get_real_time
+from vision_processor_tpu.utils.config import VisionConfig
+from vision_processor_tpu.utils.log import get_logger
+
+from ..io.camera import open_camera
+from ..utils.timing import FrameStats, StageTimer
+from .processor import Processor, TrackedArrays
+
+log = get_logger(__name__)
+
+_ROADMAP_DEBUG = "ROADMAP.md, 'Port: debug views, quad2rgba/nv12 and the debug stream (A8)'"
+_ROADMAP_CALIB = "ROADMAP.md, 'Port: calibration and idle paths'"
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+class App:
+    def __init__(self, config_path: str | None, device="cpu"):
+        self.config = VisionConfig.load(config_path)
+        cfg = self.config
+        if cfg.stream_active:
+            raise _unported("the debug stream (stream.active)", _ROADMAP_DEBUG)
+        if cfg.debug_images or cfg.debug_stream_interval_ms > 0:
+            raise _unported("debug images and snapshots", _ROADMAP_DEBUG)
+
+        heights_path = Path(cfg.bot_heights_file)
+        if heights_path.exists():
+            bot_heights = yaml.safe_load(heights_path.read_text()) or {}
+        else:
+            bot_heights = {}
+        self.gc_socket = GCSocket(cfg.gc_ip, cfg.gc_port, bot_heights)
+        self.socket = VisionSocket(
+            cfg.vision_ip, cfg.vision_port, cfg.cam_id,
+            self.gc_socket.default_bot_height,
+        )
+        self.camera = open_camera(cfg.camera)
+        self.device = torch.device(device)
+        self.processor = Processor(cfg, self.socket, self.gc_socket, device=self.device)
+        self.running = True
+
+        self.frame_stats = FrameStats()
+        self.frame_stats_timer = StageTimer(self.device)
+        self.benchmark = os.environ.get("VPTPU_BENCHMARK", "") == "1"
+        # one-frame device/host overlap: enqueue frame n+1 before finishing
+        # frame n on the host; VPTPU_PIPELINE=0 restores the frame-serial loop
+        self.pipeline = os.environ.get("VPTPU_PIPELINE", "1") != "0"
+        self._pending = None
+
+        if cfg.wait_for_geometry:
+            log.info("Waiting for geometry...")
+            while self.socket.geometry_version == 0:
+                self.socket.geometry_check()
+                time.sleep(0.001)
+
+    def stop(self, *_):
+        self.running = False
+
+    def run(self):
+        frame_id = 0
+        while self.running:
+            if self.config.reload_if_changed():
+                self.processor.apply_tunables()
+            frame = self.camera.read_image()
+            if frame is None:
+                break
+            frame_id += 1
+            start = self.camera.get_time()
+            real_start = get_real_time()
+
+            self.processor.geometry_check(frame.width, frame.height)
+
+            try:
+                if self.processor.perspective.geometry_version:
+                    self._detection_path(frame, start, real_start)
+                elif self.socket.geometry_version:
+                    raise _unported("the calibration path", _ROADMAP_CALIB)
+                else:
+                    raise _unported("the idle path (no geometry yet)", _ROADMAP_CALIB)
+            except NotImplementedError:
+                raise
+            except Exception:  # keep the camera loop alive on transient
+                log.exception("frame %d failed, continuing", frame_id)
+                self._pending = None
+
+        if self._pending is not None:
+            device_out, start, ts = self._pending
+            self._pending = None
+            wrapper, _, _ = self.processor.finish_frame(device_out, start, ts)
+            wrapper.detection.t_sent = self.camera.get_time()
+            self.socket.send(wrapper)
+
+        log.info("Stopping vision_processor")
+        self.close()
+
+    def _detection_path(self, frame, start, real_start):
+        tracked = TrackedArrays.build(
+            self.socket.get_tracked_objects(), start,
+            self.processor.det_cfg.max_tracked,
+        )
+        with self.frame_stats_timer.stage("device_step"):
+            device_out = self.processor.device_step(frame.data, frame.fmt, tracked)
+        if self.pipeline:
+            pending, self._pending = self._pending, (device_out, start, frame.timestamp)
+            if pending is None:
+                return
+            device_out, start, ts = pending
+        else:
+            ts = frame.timestamp
+        with self.frame_stats_timer.stage("host_finish"):
+            wrapper, blobs, det = self.processor.finish_frame(device_out, start, ts)
+        wrapper.detection.t_sent = self.camera.get_time()
+        self.socket.send(wrapper)
+        self.socket.update_time()
+
+        processing = get_real_time() - real_start
+        overrun = self.frame_stats.add(processing, self.camera.expected_frametime())
+        if overrun:
+            log.info(
+                "frame time overrun: %.1f ms, %d blobs, %d balls, %d bots",
+                processing * 1e3,
+                int(blobs["count"]),
+                len(wrapper.detection.balls),
+                len(wrapper.detection.robots_yellow)
+                + len(wrapper.detection.robots_blue),
+            )
+        if self.benchmark and self.processor.frame_id % 100 == 0:
+            log.info("frame stats: %s", self.frame_stats.summary())
+            self.frame_stats_timer.print_runtimes()
+            self.frame_stats_timer.clear()
+
+    def close(self):
+        self.socket.close()
+        self.gc_socket.close()
+        self.camera.close()
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("config", nargs="?", default="config.yml")
+    parser.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    args = parser.parse_args(argv)
+    app = App(args.config, device=args.device)
+    signal.signal(signal.SIGTERM, app.stop)
+    signal.signal(signal.SIGINT, app.stop)
+    app.run()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,1 @@
+"""io layer of the PyTorch port (mirrors vision_processor_tpu/io)."""

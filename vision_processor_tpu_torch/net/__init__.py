@@ -1,0 +1,1 @@
+"""net layer of the PyTorch port (mirrors vision_processor_tpu/net)."""

@@ -1,0 +1,166 @@
+"""Fused blob response (kernel B2): counterpart of
+vision_processor_tpu/ops/blob_pallas.py (``blob_response_fused``,
+``response_kernel_fits``).
+
+One pass produces the score-first extraction inputs from the flat (H, W, 3)
+map: the masked score, the circularity and the three disc-mean planes. The
+circularity uses LOCAL (r-1)x(r-1) box sums of the gradient dot, as the
+TPU kernel does, instead of the global summed-area table of the eager chain
+(ops/blob.py), so values agree with the eager chain to f32 reassociation in
+the interior and follow the fused kernel's edge-replication policy in the
+border band. On the card the CUDA kernel of ``csrc/blob_fused.cu`` runs;
+``_blob_response_fused_plain`` is its plain PyTorch version, used for CPU
+tensors and held against the kernel on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import cuda
+from .blob import disc_offsets, edge_pad
+
+_NEG_INF = float("-inf")
+
+
+def response_kernel_fits(grad_offset: int, sat_radius: int,
+                         disc_radius: int) -> bool:
+    return sat_radius >= 2 and disc_radius <= grad_offset + sat_radius + 1
+
+
+def disc_spans(dr: int) -> list[tuple[int, int]]:
+    """(dy, half width) of each disc row, in the TPU kernel's summation
+    order: groups of equal half width by ascending width, rows ascending
+    inside a group."""
+    offs = disc_offsets(dr)
+    by_hw: dict = {}
+    for dy in range(-dr, dr + 1):
+        hw = int(np.max(offs[offs[:, 0] == dy, 1]))
+        by_hw.setdefault(hw, []).append(dy)
+    return [(dy, hw) for hw in sorted(by_hw) for dy in by_hw[hw]]
+
+
+def _f32(x: float) -> float:
+    """A Python float holding an exactly f32-representable value."""
+    return float(np.float32(x))
+
+
+def _blob_response_fused_plain(flat: torch.Tensor, circ_threshold, o: int,
+                               r: int, dr: int):
+    """Plain PyTorch version of kernel B2, in the TPU kernel's op order."""
+    h, w = flat.shape[:2]
+    p = o + r + 2  # margin of the edge-replicated copy
+    fp = edge_pad(flat, p, p, p, p)
+    chans = [fp[..., c] for c in range(3)]
+
+    def sl(t, y0, ny, x0, nx):
+        return t[p + y0: p + y0 + ny, p + x0: p + x0 + nx]
+
+    # gradient dot on rows/cols [-(r+1), H + r + 1)
+    gy0, ngy, ngx = -(r + 1), h + 2 * r + 2, w + 2 * r + 2
+    g = None
+    for c in chans:
+        gx = sl(c, gy0, ngy, gy0 + o, ngx) - sl(c, gy0, ngy, gy0 - o, ngx)
+        gy = sl(c, gy0 + o, ngy, gy0, ngx) - sl(c, gy0 - o, ngy, gy0, ngx)
+        term = gx * gy
+        g = term if g is None else g + term
+
+    # local (r-1)x(r-1) box sums: row sums left to right, then rows
+    nbx = ngx - (r - 2)
+    acc = g[:, 0:nbx]
+    for b in range(1, r - 1):
+        acc = acc + g[:, b: b + nbx]
+    nby = ngy - (r - 2)
+    box = acc[0:nby]
+    for a in range(1, r - 1):
+        box = box + acc[a: a + nby]
+
+    # circularity on rows/cols [-1, H + 1): box index = coordinate + r + 1
+    def bx(y0, x0):
+        return box[y0 + r + 1: y0 + r + 1 + h + 2, x0 + r + 1: x0 + r + 1 + w + 2]
+
+    pp = bx(1, 1)            # B(y + 2, x + 2), y = x = -1
+    nn = bx(-r, -r)          # B(y - r + 1, x - r + 1)
+    pn = bx(-r, 1)           # B(y - r + 1, x + 2)
+    np_ = bx(1, -r)          # B(y + 2, x - r + 1)
+    circ_ext = torch.minimum(torch.minimum(pp, nn), torch.minimum(-pn, -np_))
+    circ_ext = circ_ext * _f32(1.0 / (r * r))
+    circ = circ_ext[1: h + 1, 1: w + 1]
+    lmax = (
+        (circ_ext[1: h + 1, 0:w] <= circ)
+        & (circ_ext[1: h + 1, 2: w + 2] <= circ)
+        & (circ_ext[0:h, 1: w + 1] <= circ)
+        & (circ_ext[2: h + 2, 1: w + 1] <= circ)
+    )
+
+    # disc colour statistics from row spans
+    spans = disc_spans(dr)
+    n_taps = len(disc_offsets(dr))
+    inv_n = _f32(1.0 / n_taps)
+    std_sum = None
+    means = []
+    for c in chans:
+        sums = []
+        for x in (c, c * c):
+            s = None
+            for dy, hw in spans:
+                rows = x[p + dy: p + dy + h]
+                sp = rows[:, p: p + w]
+                for b in range(1, hw + 1):
+                    sp = sp + rows[:, p + b: p + b + w] + rows[:, p - b: p - b + w]
+                s = sp if s is None else s + sp
+            sums.append(s)
+        mean = sums[0] * inv_n
+        var = torch.clamp_min(sums[1] * inv_n - mean * mean, 0.0)
+        sd = torch.sqrt(var)
+        std_sum = sd if std_sum is None else std_sum + sd
+        means.append(mean)
+
+    score = circ / torch.clamp_min(std_sum, 1e-12)
+    keep = (circ >= circ_threshold) & lmax
+    ms = torch.where(keep, score, _NEG_INF)
+    return ms, circ, tuple(means)
+
+
+def blob_response_fused(flat: torch.Tensor, circ_threshold, grad_offset: int,
+                        sat_radius: int, disc_radius: int):
+    """flat (H, W, 3) -> (masked_score, circ, (mean0, mean1, mean2), count).
+
+    ``circ_threshold`` is a 0-d tensor on the flat map's device (or a
+    float on the CPU).
+    """
+    o, r, dr = int(grad_offset), int(sat_radius), int(disc_radius)
+    if not response_kernel_fits(o, r, dr):
+        raise ValueError("blob_response_fused: caller gates on response_kernel_fits")
+    if not flat.is_cuda:
+        ms, circ, means = _blob_response_fused_plain(flat, circ_threshold, o, r, dr)
+    else:
+        flat = flat.contiguous()
+        cuda.require(flat, "flat", torch.float32, 3)
+        h, w, ch = flat.shape
+        if ch != 3:
+            raise ValueError(f"blob_response_fused: flat {tuple(flat.shape)}")
+        th = torch.as_tensor(circ_threshold, dtype=torch.float32,
+                             device=flat.device).reshape(1).contiguous()
+        spans = disc_spans(dr)
+        dys = (ctypes.c_int * len(spans))(*[s[0] for s in spans])
+        hws = (ctypes.c_int * len(spans))(*[s[1] for s in spans])
+        dev = flat.device
+        circ_ext = torch.empty((h + 2, w + 2), dtype=torch.float32, device=dev)
+        ms, circ, m0, m1, m2 = (
+            torch.empty((h, w), dtype=torch.float32, device=dev) for _ in range(5)
+        )
+        rc = cuda.lib().vp_blob_response(
+            flat.data_ptr(), h, w, o, r, _f32(1.0 / (r * r)), len(spans),
+            ctypes.addressof(dys), ctypes.addressof(hws),
+            _f32(1.0 / len(disc_offsets(dr))), th.data_ptr(), circ_ext.data_ptr(),
+            ms.data_ptr(), circ.data_ptr(), m0.data_ptr(), m1.data_ptr(), m2.data_ptr(),
+            cuda.stream(flat),
+        )
+        cuda.check(rc, "blob_response_fused")
+        cuda.LAUNCHES["blob_response_fused"] += 1
+        means = (m0, m1, m2)
+    count = (ms > _NEG_INF).sum(dtype=torch.int32)
+    return ms, circ, means, count

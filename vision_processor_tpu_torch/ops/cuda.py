@@ -1,0 +1,146 @@
+"""Build, load and launch the hand-written Hopper kernels (``csrc/*.cu``).
+
+The kernels are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface and loaded with ``ctypes``: a build from
+the repository's sources alone takes seconds, so the first launch in a
+process builds it into ``build/vptpu_torch_kernels/`` (a directory that
+``.gitignore`` lists), keyed by a hash of the sources.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises on anything but 0. Each
+wrapper (ops/warp.py, ops/blob_fused.py, ops/topk.py) counts its own
+launches in :data:`LAUNCHES`, so a caller can show that a run went
+through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "vptpu_torch_kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+# launches per kernel wrapper; reset with reset_launches()
+LAUNCHES: dict[str, int] = {
+    "band_pass": 0,
+    "blob_response_fused": 0,
+    "row_topk": 0,
+    "query_select_topk": 0,
+}
+
+_lock = threading.Lock()
+_lib = None
+BUILD_INFO: dict = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # src, pos, out, ch, R, C, n_out, stream
+    "vp_band_pass": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # flat, H, W, o, r, inv_rr, n_spans, dys, hws, inv_n, th,
+    # circ_ext, ms, circ, m0, m1, m2, stream
+    "vp_blob_response": [_P, _I, _I, _I, _I, _F, _I, _P, _P, _F, _P,
+                         _P, _P, _P, _P, _P, _P, _P],
+    # x, R, L, m, vals, idx, stream
+    "vp_row_topk": [_P, _I, _I, _I, _P, _P, _P],
+    # q, r2, b, rank, Q, K, m, by_rank, vals, idx, stream
+    "vp_query_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the shared library (cached by source hash)."""
+    srcs = sources()
+    h = hashlib.sha256()
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"libvptpu_torch_kernels_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        BUILD_INFO.update(path=str(out), seconds=0.0, cached=True)
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    BUILD_INFO.update(
+        path=str(out), seconds=time.perf_counter() - t0, cached=False,
+        ptxas=proc.stderr,
+    )
+    return out
+
+
+def lib():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            _lib = handle
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed: cudaError {rc}")
+
+
+def stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    """Wrapper-side argument check: CUDA, dtype, rank, contiguity."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

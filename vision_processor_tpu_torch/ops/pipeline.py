@@ -1,0 +1,121 @@
+"""The blob machine: raw frame to compacted blobs (PyTorch port).
+
+Counterpart of vision_processor_tpu/ops/pipeline.py, score-first branch
+(the production default): Bayer split -> resample to the flat dRGB field
+grid (two-pass warp, kernel B1, or the cached-grid gather) -> per-pixel
+blob response (fused kernel B2 on the card, the eager chain on the CPU, as
+the JAX package uses Pallas on the TPU only) -> exact masked compaction
+(row stage kernel B3) -> field mm positions.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from . import blob as B
+from . import frame as F
+
+
+@dataclass(frozen=True)
+class BlobMachineConfig:
+    """Static configuration of the per-frame graph."""
+
+    fmt: str  # RGGB / GRBG / BGR
+    raw_shape: tuple[int, ...]  # (2H, 2W) bayer or (H, W, 3) bgr
+    flat_shape: tuple[int, int]  # (Hf, Wf) flat field grid
+    field_scale: float  # [mm/px]
+    field_offset: tuple[float, float]  # flat grid origin in field mm
+    grad_offset: int
+    sat_radius: int
+    disc_radius: int
+    max_blobs: int = 2000
+    # "gather": cached-grid gather; "warp": two-pass separable warp
+    # (requires ops.warp.warp_fits on the geometry)
+    resample_mode: str = "gather"
+
+    @property
+    def plane_shape(self) -> tuple[int, int]:
+        """Shape of the channel-packed half-resolution planes."""
+        if self.fmt == F.BGR:
+            return (self.raw_shape[0], self.raw_shape[1])
+        return (self.raw_shape[0] // 2, self.raw_shape[1] // 2)
+
+    def make_resample_grid(self, packed_cam: torch.Tensor, max_bot_height) -> dict:
+        """Frame-invariant sampling geometry (tensors on packed_cam's
+        device), recomputed once per calibration / bot-height change."""
+        if self.resample_mode == "warp":
+            from . import warp as W
+
+            return W.warp_grid(packed_cam, max_bot_height, self.field_scale,
+                               self.field_offset, self.flat_shape, self.plane_shape,
+                               self.fmt)
+        return F.resample_grid(packed_cam, max_bot_height, self.field_scale,
+                               self.field_offset, self.flat_shape, self.plane_shape)
+
+    @classmethod
+    def from_perspective(cls, perspective, fmt: str, raw_shape: tuple[int, ...],
+                         max_blobs: int = 2000,
+                         resample_mode: str = "gather") -> "BlobMachineConfig":
+        hf = int(perspective.reprojected_field_size[1])
+        wf = int(perspective.reprojected_field_size[0])
+        return cls(
+            fmt=fmt,
+            raw_shape=tuple(raw_shape),
+            flat_shape=(hf, wf),
+            field_scale=float(perspective.field_scale),
+            field_offset=(
+                float(perspective.visible_field_extent[0]),
+                float(perspective.visible_field_extent[2]),
+            ),
+            grad_offset=B.gradient_offset(
+                perspective.max_blob_radius, perspective.field_scale
+            ),
+            sat_radius=B.sat_radius(
+                perspective.min_blob_radius, perspective.field_scale
+            ),
+            disc_radius=B.disc_radius(
+                perspective.min_blob_radius, perspective.field_scale
+            ),
+            max_blobs=max_blobs,
+            resample_mode=resample_mode,
+        )
+
+
+def blob_response_map(cfg: BlobMachineConfig, flat: torch.Tensor,
+                      circ_threshold):
+    """(masked score, circ, mean, count): the fused kernel on a CUDA tensor
+    when the radii fit it, else the eager chain."""
+    from .blob_fused import blob_response_fused, response_kernel_fits
+
+    if flat.is_cuda and response_kernel_fits(cfg.grad_offset, cfg.sat_radius,
+                                             cfg.disc_radius):
+        return blob_response_fused(flat, circ_threshold, cfg.grad_offset,
+                                   cfg.sat_radius, cfg.disc_radius)
+    circ = B.circularity(
+        B.summed_area_table(B.gradient_dot(flat, cfg.grad_offset)), cfg.sat_radius
+    )
+    ms, mean, count = B.blob_response(flat, circ, circ_threshold, cfg.disc_radius)
+    return ms, circ, mean, count
+
+
+def blob_machine(cfg: BlobMachineConfig, raw: torch.Tensor, circ_threshold,
+                 rs_grid: dict) -> dict:
+    """Full frame -> blobs. Returns the blob slot dict; positions in field
+    mm are added as ``field_pos``. ``rs_grid`` is the precomputed sampling
+    geometry (``cfg.make_resample_grid``): a warp grid ("pos1" key) or a
+    gather grid."""
+    if "pos1" in rs_grid:
+        from . import warp as W
+
+        flat = W.resample_flat_warp(raw, rs_grid, cfg.fmt, cfg.flat_shape,
+                                    cfg.plane_shape)
+    else:
+        flat = F.resample_flat_grid_raw(raw, rs_grid, cfg.fmt)
+
+    ms, circ, mean, count = blob_response_map(cfg, flat, circ_threshold)
+    blobs = B.extract_blobs_scored(flat, circ, ms, mean, count,
+                                   max_blobs=cfg.max_blobs)
+    offset = torch.as_tensor(cfg.field_offset, dtype=torch.float32, device=flat.device)
+    blobs["field_pos"] = blobs["pos"] * cfg.field_scale + offset
+    return blobs
