@@ -4,33 +4,43 @@
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py            # the smoke
-    python3 chip_smoke.py --profile  # + a torch.profiler breakdown of 3 frames
+    python3 chip_smoke.py --profile  # + a torch.profiler breakdown of each slice
     python3 chip_smoke.py --out DIR  # long outputs (ptxas, profile, JSON) to DIR
 
 Phases (any failure exits non-zero and prints no result line):
 
 1. environment: torch/CUDA versions, the card's name and power limit,
    nvcc, and which of protobuf / yaml / cv2 import;
-2. build: compiles the port's CUDA kernels (csrc/*.cu) from the checkout;
-3. the slice: one 1080p RGGB camera (camera 0 of the bench rig: 960x540
+2. build: compiles the port's CUDA kernels (csrc/*.cu, one nvcc each, in
+   parallel) from the checkout;
+3. slice 1: one 1080p RGGB camera (camera 0 of the bench rig: 960x540
    model, focal 900, k2 0.02, 4.5 m high, Div B field, 4 bots + ball, seed
    7, noise 1.5) through ``Processor.device_step`` -> ``finish_frame`` at
    max_blobs 2000, 32 tracked slots, resampling factor 1.25, on-device
    finishing, resample mode "auto" (must resolve to "warp"), with tracking
    fed back from the previous frame. Every frame after the first must find
-   all 4 robot ids within 30 mm and the ball within 40 mm; every kernel
-   must have been launched by this run (the band pass twice a frame); no
-   tensor may leave the card inside ``device_step``;
-4. kernels vs their plain PyTorch versions on the card, on the slice's
-   own intermediates plus tie and exhausted-row cases, with times.
+   all 4 robot ids within 30 mm and the ball within 40 mm; B1-B4 must have
+   been launched by this run (the band pass twice a frame); no tensor may
+   leave the card inside ``device_step``;
+4. slice 2: the same camera in the other configuration: resample mode
+   "gather" (kernel B7), ``VPTPU_SCOREFIRST=0`` (circularity-first
+   extraction, kernel B5) and ``VPTPU_COMBO_KERNEL=1`` (the fused combo
+   chain, kernel B6). The same detection bounds; B7, B5, B6 and B3 launched
+   once a frame, B4 twice, B1 and B2 never; at most 2 device->host reads a
+   frame and no tensor leaving the card inside ``device_step``;
+5. kernels vs their plain PyTorch versions on the card, on the slices' own
+   intermediates plus tie, exhausted-row and invalid-anchor cases, with
+   kernel, plain and library-call times and each kernel's bound.
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it the
-per-kernel JSON record.
+Each slice is driven with the launch counts set to 0 just before it and
+read just after. The last line is ``{"ok": true, "device": {...}}``; the
+line before it the per-kernel JSON record.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -39,7 +49,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "smoke"  # long outputs; --out moves them
-FRAMES = 10  # measured frames of the slice; the checks run on every one after the first
+FRAMES = 10  # measured frames of each slice; the checks run on every one after the first
+
+# the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s and
+# float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -94,18 +109,18 @@ def build():
     t0 = time.perf_counter()
     K.lib()
     secs = time.perf_counter() - t0
-    print(f"built {Path(K.BUILD_INFO['path']).name} in {secs:.1f} s "
-          f"(nvcc {K.BUILD_INFO.get('seconds', 0.0):.1f} s)")
+    print(f"built {Path(K.BUILD_INFO['path']).name} from {len(K.sources())} sources "
+          f"in {secs:.1f} s (nvcc {K.BUILD_INFO.get('seconds', 0.0):.1f} s)")
     ptxas = K.BUILD_INFO.get("ptxas", "")
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "ptxas.txt").write_text(ptxas)
     for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line.lower():
+        if "registers" in line or "spill" in line.lower() or line.startswith("=="):
             print("ptxas:", line.strip())
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the slice
+# phases 3 and 4: the slices
 # ---------------------------------------------------------------------------
 
 FIELD = {
@@ -117,6 +132,25 @@ FIELD = {
         "ball_radius": 21.5, "max_robot_radius": 90.0,
     }
 }
+
+# kernel wrappers, by launch-count name: (module, attribute the path calls)
+WRAPPERS = {
+    "band_pass": ("ops.warp", "band_pass"),
+    "blob_response_fused": ("ops.blob_fused", "blob_response_fused"),
+    "row_topk": ("ops.topk", "row_topk"),
+    "query_select_topk": ("ops.topk", "query_select_topk"),
+    "gather_corners": ("ops.frame", "gather_corners"),
+    "circularity_fused": ("ops.blob_fused", "circularity_fused"),
+    "combo_chain": ("ops.combo_fused", "combo_chain"),
+}
+
+# launches per frame on each slice's path; None: at least one in the run
+SLICE1_LAUNCHES = {"band_pass": 2, "blob_response_fused": None, "row_topk": None,
+                   "query_select_topk": None}
+SLICE2_LAUNCHES = {"gather_corners": 1, "circularity_fused": 1, "combo_chain": 1,
+                   "row_topk": 1, "query_select_topk": 2, "band_pass": 0,
+                   "blob_response_fused": 0}
+SLICE2_ENV = {"VPTPU_SCOREFIRST": "0", "VPTPU_COMBO_KERNEL": "1"}
 
 
 def bench_camera0():
@@ -164,16 +198,13 @@ class Recorder:
     (the originals still run; launch counts are unchanged)."""
 
     def __init__(self):
-        import vision_processor_tpu_torch.ops.blob_fused as BF
-        import vision_processor_tpu_torch.ops.topk as T
-        import vision_processor_tpu_torch.ops.warp as W
+        import importlib
 
         self.on = False
-        self.calls = {"band_pass": [], "blob_response_fused": [], "row_topk": [],
-                      "query_select_topk": []}
-        for mod, name in ((W, "band_pass"), (BF, "blob_response_fused"),
-                          (T, "row_topk"), (T, "query_select_topk")):
-            setattr(mod, name, self._wrap(name, getattr(mod, name)))
+        self.calls = {name: [] for name in WRAPPERS}
+        for name, (mod_name, attr) in WRAPPERS.items():
+            mod = importlib.import_module(f"vision_processor_tpu_torch.{mod_name}")
+            setattr(mod, attr, self._wrap(name, getattr(mod, attr)))
 
     def _wrap(self, name, fn):
         def rec(*args, **kwargs):
@@ -183,6 +214,25 @@ class Recorder:
             return fn(*args, **kwargs)
         rec.__wrapped__ = fn
         return rec
+
+
+class Env:
+    """Sets environment variables for a block, restoring them after."""
+
+    def __init__(self, values: dict):
+        self.values = values
+        self.saved = {}
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def audit_device_step(torch, fn):
@@ -215,8 +265,12 @@ def audit_device_step(torch, fn):
     return res, audit.items, audit.d2h
 
 
-def run_slice(torch, profile: bool):
-    phase("slice")
+def run_slice(torch, recorder, label: str, mode: str, want_mode: str,
+              want_launches: dict) -> dict:
+    """Drive the bench camera through the processor for FRAMES frames with
+    tracking fed back, checking detections, launches and device->host
+    reads; the launch counts are set to 0 just before and read just after."""
+    phase(label)
     import numpy as np
 
     from vision_processor_tpu_torch.app.processor import (
@@ -230,12 +284,11 @@ def run_slice(torch, profile: bool):
     cfg.max_blobs = 2000
     cfg.resampling_factor = 1.25
     cfg.device_finish = True
-    cfg.resample_mode = "auto"
+    cfg.resample_mode = mode
     cfg.stream_active = False
     dev = torch.device("cuda", 0)
     proc = Processor(cfg, max_tracked=32, device=dev)
     proc.geometry_check(width, height, geometry, 1)
-    recorder = Recorder()
 
     truth = {(b.bot_id + (16 if b.team == "blue" else 0)): b for b in scene.bots}
     ball = scene.balls[0]
@@ -254,11 +307,14 @@ def run_slice(torch, profile: bool):
     tracked = TrackedArrays.build({}, 0.0, proc.det_cfg.max_tracked)
     proc.finish_frame(proc.device_step(raw, "RGGB", tracked), 0.0)
     bm = proc._bm_cfg
-    if proc.resample_mode != "warp":
-        fail(f"resample mode resolved to {proc.resample_mode!r}, expected 'warp'")
+    if proc.resample_mode != want_mode:
+        fail(f"{label}: resample mode resolved to {proc.resample_mode!r}, "
+             f"expected {want_mode!r}")
     print(f"flat grid {bm.flat_shape}, planes {bm.plane_shape}, o={bm.grad_offset} "
           f"r={bm.sat_radius} dr={bm.disc_radius}, mode {proc.resample_mode}")
 
+    for kept in recorder.calls.values():
+        kept.clear()
     K.reset_launches()
     device_ms, frame_ms = [], []
     tracked = TrackedArrays.build({}, 0.0, proc.det_cfg.max_tracked)
@@ -275,14 +331,15 @@ def run_slice(torch, profile: bool):
             out, items_per_frame, d2h = audit_device_step(
                 torch, lambda: proc.device_step(raw, "RGGB", tracked))
             if d2h:
-                fail(f"tensors left the card inside device_step: {sorted(set(d2h))}")
+                fail(f"{label}: tensors left the card inside device_step: "
+                     f"{sorted(set(d2h))}")
         else:
             out = proc.device_step(raw, "RGGB", tracked)
         end.record()
         for part in out:
             for k, v in part.items():
                 if not v.is_cuda:
-                    fail(f"device_step output {k} is not on the card")
+                    fail(f"{label}: device_step output {k} is not on the card")
         wrapper, blobs, det = proc.finish_frame(out, now)
         wall = (time.perf_counter() - t0) * 1e3
         end.synchronize()
@@ -310,41 +367,52 @@ def run_slice(torch, profile: bool):
               f"device {start.elapsed_time(end):.3f} ms, frame {wall:.3f} ms")
         if f > 0:
             if not set(truth) <= set(found) or max(errs) > 30.0:
-                fail(f"frame {f}: robots {sorted(found)} vs {sorted(truth)}, "
+                fail(f"{label} frame {f}: robots {sorted(found)} vs {sorted(truth)}, "
                      f"max error {max(errs):.2f} mm")
             if berr > 40.0:
-                fail(f"frame {f}: ball error {berr:.2f} mm")
+                fail(f"{label} frame {f}: ball error {berr:.2f} mm")
         tracked = tracked_from(wrapper, now + 0.01)
 
     launches = dict(K.LAUNCHES)
     print(f"launches in {FRAMES} frames: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched by the slice")
-    if launches["band_pass"] != 2 * FRAMES:
-        fail(f"band_pass launched {launches['band_pass']} times, expected {2 * FRAMES}")
+    for name, per_frame in want_launches.items():
+        n = launches[name]
+        if per_frame is None and n <= 0:
+            fail(f"{label}: kernel {name} was not launched")
+        if per_frame is not None and n != per_frame * FRAMES:
+            fail(f"{label}: {name} launched {n} times, expected {per_frame * FRAMES}")
+    if items_per_frame is None or items_per_frame > 2:
+        fail(f"{label}: {items_per_frame} device->host reads in device_step, at most 2")
     print(f"device->host reads inside device_step: {items_per_frame} per frame; "
           f"no tensor left the card")
     med_dev = statistics.median(device_ms)
     med_frame = statistics.median(frame_ms)
-    print(f"median device ms per frame {med_dev:.3f} (CUDA events around device_step); "
-          f"median frame-serial wall ms {med_frame:.3f} -> {1e3 / med_frame:.1f} fps "
-          f"({len(frame_ms)} frames; the audited frame 1 is left out)")
+    print(f"{label}: median device ms per frame {med_dev:.3f} (CUDA events around "
+          f"device_step); median frame-serial wall ms {med_frame:.3f} -> "
+          f"{1e3 / med_frame:.1f} fps ({len(frame_ms)} frames; the audited frame 1 is "
+          f"left out)")
 
-    prof = None
-    if profile:
-        prof = profile_frames(torch, proc, raw, tracked)
     return {
-        "launches": launches, "calls": recorder.calls, "device_ms": device_ms,
-        "frame_ms": frame_ms, "items_per_frame": items_per_frame, "profile": prof,
+        "launches": launches, "device_ms": device_ms, "frame_ms": frame_ms,
+        "median_device_ms": med_dev, "median_frame_ms": med_frame,
+        "items_per_frame": items_per_frame,
+        "calls": {name: list(kept) for name, kept in recorder.calls.items()},
+        "run": (proc, raw, tracked),
     }
 
 
-STAGES = (
-    ("app.processor", "blob_machine", "blob machine"),
+STAGES_HEAD = (("app.processor", "blob_machine", "blob machine"),)
+STAGES_SLICE1 = (
     ("ops.warp", "resample_flat_warp", "  resample (warp, B1 x2)"),
     ("ops.pipeline", "blob_response_map", "  blob response (B2)"),
     ("ops.blob", "extract_blobs_scored", "  compaction + extraction (B3)"),
+)
+STAGES_SLICE2 = (
+    ("ops.frame", "resample_flat_grid_raw", "  resample (gather, B7)"),
+    ("ops.pipeline", "circularity_map", "  circularity (B5)"),
+    ("ops.blob", "extract_blobs", "  compaction (B3) + disc stats + order"),
+)
+STAGES_TAIL = (
     ("app.processor", "detect", "detect"),
     ("models.detector", "detection_hypotheses", "  detection hypotheses (B4 ring)"),
     ("models.detector", "tracked_hypotheses", "  tracked hypotheses (B4 tracked)"),
@@ -356,14 +424,14 @@ STAGES = (
 )
 
 
-def stage_times(torch, proc, raw, tracked, frames: int = 5) -> dict:
+def stage_times(torch, proc, raw, tracked, stages, frames: int = 5) -> dict:
     """Host wall ms per stage with a device fence at each stage boundary
     (nested stages are included in their parents)."""
     import importlib
 
-    totals = {label: 0.0 for _, _, label in STAGES}
+    totals = {label: 0.0 for _, _, label in stages}
     patched = []
-    for mod_name, fn_name, label in STAGES:
+    for mod_name, fn_name, label in stages:
         mod = importlib.import_module(f"vision_processor_tpu_torch.{mod_name}")
         fn = getattr(mod, fn_name)
 
@@ -392,11 +460,11 @@ def stage_times(torch, proc, raw, tracked, frames: int = 5) -> dict:
     return {label: total / frames for label, total in totals.items()} | {"frame": wall}
 
 
-def profile_frames(torch, proc, raw, tracked):
-    phase("profile")
+def profile_frames(torch, proc, raw, tracked, stages, label: str):
+    phase(f"profile: {label}")
     from torch.profiler import ProfilerActivity, profile
 
-    stages = stage_times(torch, proc, raw, tracked)
+    table = stage_times(torch, proc, raw, tracked, stages)
 
     for _ in range(2):
         proc.finish_frame(proc.device_step(raw, "RGGB", tracked), 0.0)
@@ -408,9 +476,10 @@ def profile_frames(torch, proc, raw, tracked):
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    table = events.table(sort_by="self_cuda_time_total", row_limit=40)
     OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / "profile.txt").write_text(table)
+    name = label.replace(" ", "_").replace(",", "").replace("=", "")
+    (OUT / f"profile_{name}.txt").write_text(
+        events.table(sort_by="self_cuda_time_total", row_limit=40))
     # device work = kernels and copies on the card (not the aten:: ops
     # that launched them); busy share = union of their intervals / wall
     dev_us = _busy_us(prof.events())
@@ -418,15 +487,17 @@ def profile_frames(torch, proc, raw, tracked):
     kern = sorted((e for e in events if not e.key.startswith("aten::")),
                   key=lambda e: -e.self_device_time_total)[:12]
     print(f"3 frames: wall {wall:.3f} ms, device busy {dev_us / 1e3:.3f} ms "
-          f"({100.0 * dev_us / 1e3 / wall:.1f} % busy), {n_dev} device events")
+          f"({100.0 * dev_us / 1e3 / wall:.1f} % busy), {n_dev} device events "
+          f"({n_dev / 3:.0f} per frame)")
     for e in kern:
         print(f"  {e.key[:70]:70s} {e.self_device_time_total / 3e3:8.3f} ms/frame "
               f"x{e.count // 3}")
-    return {"wall_ms": wall, "device_ms": dev_us / 1e3, "stages": stages}
+    return {"wall_ms": wall, "device_ms": dev_us / 1e3, "device_events": n_dev,
+            "stages": table}
 
 
 # ---------------------------------------------------------------------------
-# phase 4: kernels vs plain versions
+# phase 5: kernels vs plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -480,6 +551,15 @@ def _fmt(t) -> str:
     return f"{t[1]:.4f} ms span ({t[0]:.4f} ms busy)"
 
 
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time the card could take (ms), and what bounds it: the
+    bytes that must move over the HBM rate, or the float32 operations over
+    the peak rate, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def ulp_close(torch, a, b, n_ulp: int) -> bool:
     fin = torch.isfinite(a) & torch.isfinite(b)
     same_inf = (a == b) | fin
@@ -489,39 +569,63 @@ def ulp_close(torch, a, b, n_ulp: int) -> bool:
     return bool((torch.abs(a - b)[fin] <= n_ulp * spacing[fin]).all())
 
 
-def check_kernels(torch, rec) -> list:
-    phase("kernels vs plain")
-    from vision_processor_tpu_torch.ops import blob_fused as BF
-    from vision_processor_tpu_torch.ops import topk as T
-    from vision_processor_tpu_torch.ops import warp as W
+def _result(name, src, repl, err, t_k, t_p, bnd, t_lib):
+    return {"name": name, "src": src, "repl": repl, "err": err, "t_k": t_k, "t_p": t_p,
+            "bound": bnd, "t_lib": t_lib}
+
+
+def _check_b1(torch, calls):
+    import vision_processor_tpu_torch.ops.warp as W
 
     band_pass = W.band_pass.__wrapped__
-    fused = BF.blob_response_fused.__wrapped__
-    row_topk = T.row_topk.__wrapped__
-    query = T.query_select_topk.__wrapped__
-    calls = rec["calls"]
-    results = []
-
-    # B1: both warp passes of the recorded frame
     errs, shapes = [], []
-    t_k = t_p = (0.0, 0.0)
-    for (src, pos), _ in calls["band_pass"]:
+    t_k = t_p = t_l = (0.0, 0.0)
+    n_bytes = n_ops = 0.0
+    lib_err = 0.0
+    for (src, pos), _ in calls:
         got = band_pass(src, pos)
         want = W._band_pass_plain(src, pos)
         errs.append(float((got - want).abs().max()))
         t_k = _add(t_k, time_fn(torch, lambda: band_pass(src, pos)))
         t_p = _add(t_p, time_fn(torch, lambda: W._band_pass_plain(src, pos)))
+        # library yardstick: grid_sample as a 1-D lerp along axis 1, one
+        # column per batch entry (width 1, so x is exact); float64, since a
+        # float32 grid's normalisation moves the taps by up to 1e-4 px
+        ch, r, c = src.shape
+        n_out = pos.shape[1]
+        inp = src.permute(0, 2, 1).reshape(ch * c, 1, r, 1).double().contiguous()
+        y = pos.permute(0, 2, 1).reshape(ch * c, n_out, 1).double() * (2.0 / (r - 1)) - 1.0
+        grid = torch.stack([torch.zeros_like(y), y], dim=-1).contiguous()
+
+        def lib():
+            return torch.nn.functional.grid_sample(inp, grid, mode="bilinear",
+                                                   padding_mode="border",
+                                                   align_corners=True)
+
+        lib_out = lib().reshape(ch, c, n_out).permute(0, 2, 1).float()
+        lib_err = max(lib_err, float((lib_out - want).abs().max()))
+        t_l = _add(t_l, time_fn(torch, lib))
         shapes.append(f"src {tuple(src.shape)} pos {tuple(pos.shape)}")
+        n_bytes += 4 * (src.numel() + 2 * pos.numel())
+        n_ops += 5 * pos.numel()
     err = max(errs)
     print(f"B1 band_pass ({'; '.join(shapes)}): max abs err {err:.3g} (tol 1e-3); "
-          f"per frame (2 passes) kernel {_fmt(t_k)} vs plain {_fmt(t_p)}")
+          f"per frame (2 passes) kernel {_fmt(t_k)} vs plain {_fmt(t_p)}; library "
+          f"grid_sample (f64) {_fmt(t_l)}, max abs err {lib_err:.3g} (tol 1e-3)")
     if not err <= 1e-3:
         fail("band_pass disagrees with its plain version")
-    results.append(("band_pass", "vision_processor_tpu_torch/csrc/warp.cu",
-                    "vision_processor_tpu/ops/warp.py:54", err, t_k, t_p))
+    if not lib_err <= 1e-3:
+        fail("the grid_sample yardstick disagrees with the band pass")
+    return _result("band_pass", "vision_processor_tpu_torch/csrc/warp.cu",
+                   "vision_processor_tpu/ops/warp.py:54", err, t_k, t_p,
+                   bound(n_bytes, n_ops), t_l)
 
-    # B2: the recorded flat map
-    (flat, th, o, r, dr), _ = calls["blob_response_fused"][0]
+
+def _check_b2(torch, calls):
+    import vision_processor_tpu_torch.ops.blob_fused as BF
+
+    fused = BF.blob_response_fused.__wrapped__
+    (flat, th, o, r, dr), _ = calls[0]
     ms_k, circ_k, means_k, _ = fused(flat, th, o, r, dr)
     ms_p, circ_p, means_p = BF._blob_response_fused_plain(flat, th, o, r, dr)
     scale = float(circ_p.abs().max()) + 1.0
@@ -539,14 +643,24 @@ def check_kernels(torch, rec) -> list:
     print(f"B2 blob_response_fused (flat {tuple(flat.shape)}, o={o} r={r} dr={dr}): "
           f"circ rel err {circ_rel:.3g} (tol 1e-5), score rel err {ms_rel:.3g} "
           f"(tol 1e-5), masks equal {mask_eq}, mean abs err {mean_err:.3g} "
-          f"(tol 1e-3); kernel {_fmt(t_k)} vs plain {_fmt(t_p)}")
+          f"(tol 1e-3); kernel {_fmt(t_k)} vs plain {_fmt(t_p)}; no library call")
     if not (circ_rel <= 1e-5 and ms_rel <= 1e-5 and mask_eq and mean_err <= 1e-3):
         fail("blob_response_fused disagrees with its plain version")
-    results.append(("blob_response_fused", "vision_processor_tpu_torch/csrc/blob_fused.cu",
-                    "vision_processor_tpu/ops/blob_pallas.py:102", err, t_k, t_p))
+    h, w = flat.shape[:2]
+    # per pixel, the TPU formulation's arithmetic: gradient dot 11, box rows
+    # and columns 2(r-2), quadrant min 6, local max 4, disc spans 6(4dr+1),
+    # squares 3, mean/var/sd 15, score and mask 5
+    ops_px = 11 + 2 * (r - 2) + 6 + 4 + 6 * (4 * dr + 1) + 3 + 15 + 5
+    return _result("blob_response_fused", "vision_processor_tpu_torch/csrc/blob_fused.cu",
+                   "vision_processor_tpu/ops/blob_pallas.py:102", err, t_k, t_p,
+                   bound(4 * h * w * (3 + 5), ops_px * h * w), None)
 
-    # B3: the recorded masked map, plus ties and exhausted rows
-    (masked, mm), _ = calls["row_topk"][0]
+
+def _check_b3(torch, calls):
+    import vision_processor_tpu_torch.ops.topk as T
+
+    row_topk = T.row_topk.__wrapped__
+    (masked, mm), _ = calls[0]
     cases = [("slice", masked, mm)]
     g = torch.Generator(device="cuda").manual_seed(5)
     x = torch.randn(432, 770, device="cuda", generator=g)
@@ -567,24 +681,39 @@ def check_kernels(torch, rec) -> list:
             fail(f"row_topk {label}: values equal {ok_v}, indices equal {ok_i}")
         if bool(valid.any()):
             err = max(err, float((v_k[valid] - v_p[valid]).abs().max()))
+        v_l, _ = torch.topk(xx, m, dim=1)  # tie order differs: values only
+        if not bool(((v_l == v_p) | (torch.isinf(v_l) & torch.isinf(v_p))).all()):
+            fail(f"torch.topk yardstick {label}: values differ")
     t_k = time_fn(torch, lambda: row_topk(masked, mm))
     t_p = time_fn(torch, lambda: T._row_topk_plain(masked, mm))
+    t_l = time_fn(torch, lambda: torch.topk(masked, mm, dim=1))
     print(f"B3 row_topk ({tuple(masked.shape)}, m={mm}; +ties/exhausted m=6,19): values "
           f"bit-equal, indices equal where value > -inf; kernel {_fmt(t_k)} vs plain "
-          f"{_fmt(t_p)}")
-    results.append(("row_topk", "vision_processor_tpu_torch/csrc/topk.cu",
-                    "vision_processor_tpu/ops/topk.py:109", err, t_k, t_p))
+          f"{_fmt(t_p)}; library torch.topk (values equal) {_fmt(t_l)}")
+    r, l = masked.shape
+    return _result("row_topk", "vision_processor_tpu_torch/csrc/topk.cu",
+                   "vision_processor_tpu/ops/topk.py:109", err, t_k, t_p,
+                   bound(4 * r * l + 8 * r * mm, r * l), t_l)
 
-    # B4: the recorded ring (by rank) and tracked (by distance) selections
+
+def _check_b4(torch, calls):
+    import vision_processor_tpu_torch.ops.topk as T
+
+    query = T.query_select_topk.__wrapped__
     err = 0.0
     t_k = t_p = (0.0, 0.0)
+    n_bytes = n_ops = 0.0
     labels = []
     seen = set()
-    for (qxy, r2, bxy, rank), kw in calls["query_select_topk"]:
+    for (qxy, r2, bxy, rank), kw in calls:
         m, by_rank = kw["m"], kw["by_rank"]
-        if (m, by_rank, qxy.shape[0]) in seen:
+        q, k = qxy.shape[0], bxy.shape[0]
+        # the bound counts every call of the frame (ring and tracked)
+        n_bytes += 12 * q + 12 * k + 8 * q * m
+        n_ops += 6 * q * k
+        if (m, by_rank, q) in seen:
             continue
-        seen.add((m, by_rank, qxy.shape[0]))
+        seen.add((m, by_rank, q))
         v_k, i_k = query(qxy, r2, bxy, rank, m=m, by_rank=by_rank)
         v_p, i_p = T._query_select_plain(qxy, r2, bxy, rank, m, by_rank)
         valid = v_p > float("-inf")
@@ -603,8 +732,7 @@ def check_kernels(torch, rec) -> list:
                                                      by_rank=by_rank)))
         t_p = _add(t_p, time_fn(torch, lambda: T._query_select_plain(qxy, r2, bxy, rank,
                                                                     m, by_rank)))
-        labels.append(f"Q={qxy.shape[0]} K={bxy.shape[0]} m={m} "
-                      f"{'rank' if by_rank else '-d2'}")
+        labels.append(f"Q={q} K={k} m={m} {'rank' if by_rank else '-d2'}")
     # exhausted queries and exact distance ties
     qxy = torch.zeros((3, 2), device="cuda")
     bxy = torch.tensor([[3.0, 4.0], [-3.0, 4.0], [5.0, 0.0], [100.0, 0.0]], device="cuda")
@@ -618,10 +746,135 @@ def check_kernels(torch, rec) -> list:
             fail(f"query_select_topk tie/exhausted case (by_rank={by_rank}) disagrees")
     print(f"B4 query_select_topk ({'; '.join(labels)}; +ties/exhausted): rank values "
           f"bit-equal, -d2 values within 2 ulp, indices equal where valid; per frame "
-          f"kernel {_fmt(t_k)} vs plain {_fmt(t_p)}")
-    results.append(("query_select_topk", "vision_processor_tpu_torch/csrc/topk.cu",
-                    "vision_processor_tpu/ops/topk.py:162", err, t_k, t_p))
-    return results
+          f"kernel {_fmt(t_k)} vs plain {_fmt(t_p)}; no library call")
+    return _result("query_select_topk", "vision_processor_tpu_torch/csrc/topk.cu",
+                   "vision_processor_tpu/ops/topk.py:162", err, t_k, t_p,
+                   bound(n_bytes, n_ops), None)
+
+
+def _check_b5(torch, calls):
+    import vision_processor_tpu_torch.ops.blob_fused as BF
+
+    circ_fused = BF.circularity_fused.__wrapped__
+    (flat, o, r), _ = calls[0]
+    got = circ_fused(flat, o, r)
+    want = BF._circularity_fused_plain(flat, o, r)
+    err = float((got - want).abs().max())
+    rel = err / (float(want.abs().max()) + 1.0)
+    t_k = time_fn(torch, lambda: circ_fused(flat, o, r))
+    t_p = time_fn(torch, lambda: BF._circularity_fused_plain(flat, o, r))
+    print(f"B5 circularity_fused (flat {tuple(flat.shape)}, o={o} r={r}): max abs err "
+          f"{err:.3g}, rel err {rel:.3g} (tol 1e-5); kernel {_fmt(t_k)} vs plain "
+          f"{_fmt(t_p)}; no library call")
+    if not rel <= 1e-5:
+        fail("circularity_fused disagrees with its plain version")
+    h, w = flat.shape[:2]
+    ops_px = 11 + 2 * (r - 2) + 6  # gradient dot, box rows and columns, quadrant min
+    return _result("circularity_fused", "vision_processor_tpu_torch/csrc/blob_fused.cu",
+                   "vision_processor_tpu/ops/blob_pallas.py:58", err, t_k, t_p,
+                   bound(4 * h * w * (3 + 1), ops_px * h * w), None)
+
+
+def _check_b6(torch, calls):
+    """Bit-equality with the plain version, or else the fallback: scores
+    within 4 ulp, winners equal except where two combos lie within 4 ulp,
+    cos/sin/x/y within 1e-5 relative."""
+    import vision_processor_tpu_torch.ops.combo_fused as CF
+
+    chain = CF.combo_chain.__wrapped__
+    (maps, anchor_pos, ring_count, anchor_valid, combo_max, pat, pbar), _ = calls[0]
+    a, c = maps.shape[1:]
+    # A = 512: the recorded maps four times over, the last half made valid
+    # anchors with full rings, every fifth anchor with combos 7 and 40 tied,
+    # every third of the first half invalid
+    maps4 = maps.repeat(1, 4, 1)
+    maps4[:, ::5, 40] = maps4[:, ::5, 7]
+    pos4 = anchor_pos.repeat(4, 1)
+    rc4 = ring_count.repeat(4)
+    av4 = anchor_valid.repeat(4)
+    rc4[2 * a:] = 8
+    av4[2 * a:] = True
+    av4[: 2 * a: 3] = False
+    cases = [(f"A={a} (slice)", (maps, anchor_pos, ring_count, anchor_valid)),
+             (f"A={4 * a} (ties, invalid)", (maps4, pos4, rc4, av4))]
+    held, err, times = "bit-equal", 0.0, {}
+    for label, (mp, ap, rc, av) in cases:
+        got = chain(mp, ap, rc, av, combo_max, pat, pbar)
+        want = CF._combo_chain_plain(mp, ap, rc, av, combo_max, pat, pbar)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            held = "4-ulp fallback"
+            same = got[5] == want[5]
+            near = ulp_close(torch, got[0][~same], want[0][~same], 4)
+            ok = ulp_close(torch, got[0], want[0], 4) and near and all(
+                bool(torch.allclose(g[same], w[same], rtol=1e-5, atol=0))
+                for g, w in zip(got[1:5], want[1:5]))
+            if not ok:
+                fail(f"combo_chain {label} disagrees with its plain version")
+        err = max(err, max(float((g.float() - w.float()).abs().max())
+                           for g, w in zip(got[:5], want[:5])))
+        wins = int((got[0] > 0).sum())
+        n = mp.shape[1]
+        b_ms, b_by = bound(4 * 12 * n * c + 13 * n + 4 * c + 24 * n, 120 * n * c)
+        print(f"B6 combo_chain {label}, C={c}: {held}, {wins} anchors with a winner; "
+              f"bound {b_ms:.6f} ms ({b_by})")
+        times[label] = (
+            time_fn(torch, lambda: chain(mp, ap, rc, av, combo_max, pat, pbar)),
+            time_fn(torch, lambda: CF._combo_chain_plain(mp, ap, rc, av, combo_max,
+                                                         pat, pbar)))
+    for label, (t_k, t_p) in times.items():
+        print(f"B6 combo_chain {label}: kernel {_fmt(t_k)} vs plain {_fmt(t_p)}")
+    t_k, t_p = times[cases[0][0]]
+    print(f"B6: max abs err {err:.3g} (tol: bit-equal, else the 4-ulp fallback); "
+          f"no library call")
+    # bytes: the 12 maps, anchor position / ring count / validity, the
+    # combo table, 6 outputs; about 120 float32 operations per pair
+    return _result("combo_chain", "vision_processor_tpu_torch/csrc/combo.cu",
+                   "vision_processor_tpu/ops/combo_pallas.py:62", err, t_k, t_p,
+                   bound(4 * 12 * a * c + 13 * a + 4 * c + 24 * a, 120 * a * c), None)
+
+
+def _check_b7(torch, calls):
+    import vision_processor_tpu_torch.ops.frame as F
+    import vision_processor_tpu_torch.ops.gather_corners as G
+
+    gather = F.gather_corners.__wrapped__  # the binding the gather path calls
+    (stacked, idx), _ = calls[0]
+    got = gather(stacked, idx)
+    want = G._gather_corners_plain(stacked, idx)
+    err = float((got - want).abs().max())
+    flat_idx = idx.reshape(-1).long()
+    lib_rows = stacked.index_select(0, flat_idx)
+    if not torch.equal(lib_rows.float().reshape(got.shape), got):
+        fail("index_select yardstick differs from gather_corners")
+    t_k = time_fn(torch, lambda: gather(stacked, idx))
+    t_p = time_fn(torch, lambda: G._gather_corners_plain(stacked, idx))
+    t_l = time_fn(torch, lambda: stacked.index_select(0, flat_idx))
+    print(f"B7 gather_corners (stack {tuple(stacked.shape)} u8, idx {tuple(idx.shape)}): "
+          f"max abs err {err:.3g} (tol 0, bit-equal); kernel {_fmt(t_k)} vs plain "
+          f"{_fmt(t_p)}; library index_select (u8 rows, equal) {_fmt(t_l)}")
+    if err != 0.0:
+        fail("gather_corners disagrees with its plain version")
+    n = idx.numel()
+    rows = int(torch.unique(idx).numel())  # the stack rows this grid reads
+    return _result("gather_corners", "vision_processor_tpu_torch/csrc/gather.cu",
+                   "vision_processor_tpu/ops/pallas_resample.py:88", err, t_k, t_p,
+                   bound(4 * n + 16 * rows + 64 * n, 16 * n), t_l)
+
+
+def check_kernels(torch, s1: dict, s2: dict) -> list:
+    """Each kernel on the last frame's inputs of the slice whose path it
+    belongs to: B1-B4 slice 1's, B5-B7 slice 2's."""
+    phase("kernels vs plain")
+    c1, c2 = s1["calls"], s2["calls"]
+    return [
+        _check_b1(torch, c1["band_pass"]),
+        _check_b2(torch, c1["blob_response_fused"]),
+        _check_b3(torch, c1["row_topk"]),
+        _check_b4(torch, c1["query_select_topk"]),
+        _check_b5(torch, c2["circularity_fused"]),
+        _check_b6(torch, c2["combo_chain"]),
+        _check_b7(torch, c2["gather_corners"]),
+    ]
 
 
 def main() -> None:
@@ -641,25 +894,54 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this smoke runs only on a GPU")
     card = environment(torch)
     build()
-    rec = run_slice(torch, args.profile)
-    results = check_kernels(torch, rec)
+    recorder = Recorder()
+    s1 = run_slice(torch, recorder, "slice 1", "auto", "warp", SLICE1_LAUNCHES)
+    with Env(SLICE2_ENV):
+        s2 = run_slice(torch, recorder, "slice 2", "gather", "gather", SLICE2_LAUNCHES)
+    for label, s in (("slice 1 (warp, score-first)", s1),
+                     ("slice 2 (gather, circ-first, fused combo)", s2)):
+        print(f"{label}: median device span {s['median_device_ms']:.3f} ms, "
+              f"frame-serial {1e3 / s['median_frame_ms']:.1f} fps")
+    if args.profile:
+        # after both timed runs, so that no profiler session precedes them
+        s1["profile"] = profile_frames(torch, *s1["run"],
+                                       STAGES_HEAD + STAGES_SLICE1 + STAGES_TAIL, "slice 1")
+        stages2 = STAGES_HEAD + STAGES_SLICE2 + STAGES_TAIL
+        with Env(SLICE2_ENV):
+            s2["profile"] = profile_frames(torch, *s2["run"], stages2, "slice 2")
+            # the question of ROADMAP B6: the same frames with the unfused chain
+            with Env({"VPTPU_COMBO_KERNEL": "0"}):
+                s2["profile_combo_off"] = profile_frames(
+                    torch, *s2["run"], stages2, "slice 2, VPTPU_COMBO_KERNEL=0")
+    results = check_kernels(torch, s1, s2)
 
+    path_of = {name: (s2 if name in ("gather_corners", "circularity_fused", "combo_chain")
+                      else s1) for name in WRAPPERS}
     record = {"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": repl,
-         "launches": rec["launches"][name], "max_abs_err": err, "ms": ms[1],
-         "plain_ms": pms[1], "busy_ms": ms[0], "plain_busy_ms": pms[0]}
-        for name, src, repl, err, ms, pms in results
+        {"name": r["name"], "route": "cuda", "source": r["src"], "replaces": r["repl"],
+         "launches": path_of[r["name"]]["launches"][r["name"]], "max_abs_err": r["err"],
+         "ms": r["t_k"][1], "plain_ms": r["t_p"][1], "bound_ms": r["bound"][0],
+         "bound_by": r["bound"][1],
+         "library_ms": None if r["t_lib"] is None else r["t_lib"][1],
+         "busy_ms": r["t_k"][0], "plain_busy_ms": r["t_p"][0],
+         "library_busy_ms": None if r["t_lib"] is None else r["t_lib"][0]}
+        for r in results
     ]}
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "result.json").write_text(json.dumps({
-        "card": card, "kernels": record["kernels"], "device_ms": rec["device_ms"],
-        "frame_ms": rec["frame_ms"], "items_per_frame": rec["items_per_frame"],
-        "profile": rec["profile"],
+        "card": card, "kernels": record["kernels"],
+        "slices": {label: {k: v for k, v in s.items() if k not in ("calls", "run")}
+                   for label, s in (("slice 1", s1), ("slice 2", s2))},
     }, indent=1))
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))
     if jax_mods:
         fail(f"the port loaded jax: {jax_mods[:5]}")
+    ref = str(ROOT / "vision_processor_tpu") + os.sep
+    ref_mods = sorted(n for n, m in list(sys.modules.items())
+                      if (getattr(m, "__file__", None) or "").startswith(ref))
+    if ref_mods:
+        fail(f"the port loaded modules of the JAX package: {ref_mods[:5]}")
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -205,7 +205,9 @@ def test_clipping_nms_parity():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port adds no jax module."""
+    """Importing every module of the port loads no jax module and nothing
+    from the JAX package's directory (its modules, or its protobuf bindings
+    under their flat ``ssl_*_pb2`` names)."""
     mods = sorted(
         "vision_processor_tpu_torch." + ".".join(p.relative_to(ROOT / "vision_processor_tpu_torch")
                                                  .with_suffix("").parts)
@@ -213,17 +215,47 @@ def test_port_imports_no_jax():
         if p.name != "__init__.py"
     )
     code = (
-        "import sys, importlib\n"
-        "before = {m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))}\n"
+        "import importlib, os, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "after = {m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))}\n"
-        "print(len(after - before)); sys.exit(1 if after - before else 0)\n"
+        "jax = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        f"ref = os.path.join({str(ROOT)!r}, 'vision_processor_tpu') + os.sep\n"
+        "ours = sorted(n for n, m in list(sys.modules.items())\n"
+        "              if (getattr(m, '__file__', None) or '').startswith(ref))\n"
+        "print(jax[:5], ours[:5]); sys.exit(1 if jax or ours else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(mods) >= 17
+    assert len(mods) >= 35
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Processor, App and main() run on "cuda" unless the caller passes
+    "cpu"; main() does not fall back when no GPU is found."""
+    import inspect
+
+    from vision_processor_tpu_torch.app import main as M
+
+    assert inspect.signature(Processor).parameters["device"].default == "cuda"
+    assert inspect.signature(M.App).parameters["device"].default == "cuda"
+    seen = []
+
+    class FakeApp:
+        def __init__(self, config, device):
+            seen.append(device)
+
+        def run(self):
+            pass
+
+        def stop(self, *_):
+            pass
+
+    monkeypatch.setattr(M, "App", FakeApp)
+    monkeypatch.setattr(M.signal, "signal", lambda *a: None)
+    M.main(["config.yml"])
+    M.main(["config.yml", "--device", "cpu"])
+    assert seen == ["cuda", "cpu"]
 
 
 def test_device_path_without_protobuf(rig, tmp_path):

@@ -1,6 +1,6 @@
 """vision_processor entry point, detection path (PyTorch port).
 
-Usage: python -m vision_processor_tpu_torch.app.main [config.yml] [--device cuda]
+Usage: python -m vision_processor_tpu_torch.app.main [config.yml] [--device cpu]
 
 Counterpart of vision_processor_tpu/app/main.py (reference
 src/main.cpp:251-427): read frame -> adopt geometry -> detection path ->
@@ -21,11 +21,10 @@ from pathlib import Path
 import torch
 import yaml
 
-from vision_processor_tpu.net.udp import GCSocket, VisionSocket, get_real_time
-from vision_processor_tpu.utils.config import VisionConfig
-from vision_processor_tpu.utils.log import get_logger
-
 from ..io.camera import open_camera
+from ..net.udp import GCSocket, VisionSocket, get_real_time
+from ..utils.config import VisionConfig
+from ..utils.log import get_logger
 from ..utils.timing import FrameStats, StageTimer
 from .processor import Processor, TrackedArrays
 
@@ -40,7 +39,7 @@ def _unported(what: str, item: str) -> NotImplementedError:
 
 
 class App:
-    def __init__(self, config_path: str | None, device="cpu"):
+    def __init__(self, config_path: str | None, device="cuda"):
         self.config = VisionConfig.load(config_path)
         cfg = self.config
         if cfg.stream_active:
@@ -162,7 +161,8 @@ class App:
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("config", nargs="?", default="config.yml")
-    parser.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; pass cpu to run on the CPU)")
     args = parser.parse_args(argv)
     app = App(args.config, device=args.device)
     signal.signal(signal.SIGTERM, app.stop)

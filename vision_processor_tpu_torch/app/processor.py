@@ -7,7 +7,7 @@ processor's device and enqueues the whole compute path — blob machine,
 hypothesis search and, with ``device_finish``, the on-device finisher —
 returning tensors that stay on the device. ``finish_frame`` brings the
 small result tensors to the host and assembles the protobuf detection
-frame (fused path), or runs the JAX package's ``HostDetector`` on them.
+frame (fused path), or runs the host finisher ``HostDetector`` on them.
 Everything up to the packet imports without the protobuf bindings: the
 packet and ``HostDetector`` import them where they are first used.
 
@@ -23,14 +23,13 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from vision_processor_tpu.models.colors import ColorState
-from vision_processor_tpu.utils.config import VisionConfig
-from vision_processor_tpu.utils.log import get_logger
-
+from ..models.colors import ColorState
 from ..models.detector import DetectorConfig, detect, estimate_bot_ids
 from ..models.device_finish import finish_on_device, pack_field_marks
 from ..models.perspective import Perspective
 from ..ops.pipeline import BlobMachineConfig, blob_machine
+from ..utils.config import VisionConfig
+from ..utils.log import get_logger
 from ..utils.state import to_numpy, to_torch
 
 log = get_logger(__name__)
@@ -117,7 +116,7 @@ class Processor:
     """One camera's full detection stack on an explicit torch device."""
 
     def __init__(self, config: VisionConfig, socket=None, gc_socket=None,
-                 max_tracked: int = 32, device="cpu"):
+                 max_tracked: int = 32, device="cuda"):
         self.config = config
         self.socket = socket
         self.gc_socket = gc_socket
@@ -156,8 +155,8 @@ class Processor:
 
     @functools.cached_property
     def host(self):
-        """The JAX package's host finisher, for ``device_finish`` off."""
-        from vision_processor_tpu.models.host_detect import HostDetector
+        """The host finisher (models/host_detect.py), for ``device_finish`` off."""
+        from ..models.host_detect import HostDetector
 
         return HostDetector(self.config, self.colors, self.perspective)
 
@@ -197,7 +196,7 @@ class Processor:
             self._geom_key = None
             # re-broadcast calib with derived world position when missing
             if self.socket is not None and not had_calib:
-                from vision_processor_tpu.proto import (
+                from ..proto import (
                     SSL_SOURCE_VISION_PROCESSOR,
                     SSL_WrapperPacket,
                 )
@@ -322,7 +321,7 @@ class Processor:
         return out
 
     def _frame_shell(self, t_capture: float, t_capture_camera: float):
-        from vision_processor_tpu.proto import (
+        from ..proto import (
             SSL_SOURCE_VISION_PROCESSOR,
             SSL_WrapperPacket,
         )

@@ -1,27 +1,34 @@
 // Fused blob response: gradient dot, local box sums, quadrant circularity,
-// 4-neighbour local maximum, disc colour mean/stddev and the masked score.
+// 4-neighbour local maximum, disc colour mean/stddev and the masked score;
+// and the circularity alone.
 //
 // Replaces vision_processor_tpu/ops/blob_pallas.py:_response_kernel
-// (blob_response_fused). The TPU kernel keeps the three edge-padded flat
-// channels resident in VMEM and walks 16-row bands, forming every
-// intermediate with lane rolls so that none of them reaches HBM.
+// (blob_response_fused, kernel B2) and :_kernel (circularity_fused, kernel
+// B5, the circularity-first extraction). Both TPU kernels keep the three
+// edge-padded flat channels resident in VMEM and walk 16-row bands,
+// forming every intermediate with lane rolls so that none of them reaches
+// HBM.
 //
 // Bound: arithmetic on L1-resident data. Every output pixel needs the
-// circularity of itself and its four neighbours (4 boxes of (r-1)^2
-// gradient values, each 3 channels x 4 reads) and 2 x 3 disc sums over
-// 29 taps (r = 4, dr = 3 at the slice), all read from a (432, 770, 3) f32
-// map that stays in L2 (4 MB). Design, simple first: two launches.
-// Launch 1 computes the circularity on the output grid widened by one
-// pixel on each side (the local-max neighbours) into a scratch map, each
-// thread recomputing its gradient values with clamped reads; launch 2
-// reads the five circularity values it needs from the scratch map and
-// computes the disc statistics, score and mask. Clamped reads of the
-// unpadded map equal the TPU wrapper's edge-replicated padding, and the
-// lane-roll wrap of the TPU kernel lies outside its crop, so results
-// agree over the whole cropped map. Every sum is taken in the TPU kernel's
-// order with round-to-nearest intrinsics (no FMA contraction), so the
-// kernel is bit-equal to the plain PyTorch version
-// (ops/blob_fused.py _blob_response_fused_plain).
+// circularity of itself (B5) or of itself and its four neighbours (B2):
+// 4 boxes of (r-1)^2 gradient values, each 3 channels x 4 reads; B2 adds
+// 2 x 3 disc sums over 29 taps (r = 4, dr = 3 at the slice). All of it is
+// read from a (432, 770, 3) f32 map that stays in L2 (4 MB). The bytes
+// that must move (the map once, the outputs once) take 1.6 us (B5) and
+// 3.2 us (B2) at HBM rate, far below the recompute. Design, simple first:
+// circ_kernel computes the circularity on the output grid widened by `ext`
+// pixels on each side, each thread recomputing its gradient values with
+// clamped reads. B5 is one launch of it at ext = 0. B2 launches it at
+// ext = 1 into a scratch map (the local-max neighbours), then
+// response_kernel reads the five circularity values it needs from the
+// scratch map and computes the disc statistics, score and mask. Clamped
+// reads of the unpadded map equal the TPU wrappers' edge-replicated
+// padding, and the lane-roll wrap of the TPU kernels lies outside their
+// crop, so results agree over the whole cropped map. Every sum is taken in
+// the TPU kernels' order with round-to-nearest intrinsics (no FMA
+// contraction), so both kernels are bit-equal to their plain PyTorch
+// versions (ops/blob_fused.py _blob_response_fused_plain,
+// _circularity_fused_plain).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -72,15 +79,16 @@ __device__ float box_at(const float* __restrict__ flat, int H, int W, int y,
   return box;
 }
 
-// circularity on the (H + 2, W + 2) grid: circ_ext[ye, xe] = circ(ye - 1, xe - 1)
+// circularity on the (H + 2 ext, W + 2 ext) grid:
+// circ_ext[ye, xe] = circ(ye - ext, xe - ext)
 __global__ void circ_kernel(const float* __restrict__ flat, int H, int W,
-                            int o, int r, float inv_rr,
+                            int o, int r, int ext, float inv_rr,
                             float* __restrict__ circ_ext) {
-  int We = W + 2;
+  int We = W + 2 * ext;
   long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)(H + 2) * We) return;
-  int y = (int)(t / We) - 1;
-  int x = (int)(t % We) - 1;
+  if (t >= (long long)(H + 2 * ext) * We) return;
+  int y = (int)(t / We) - ext;
+  int x = (int)(t % We) - ext;
   float pp = box_at(flat, H, W, y + 2, x + 2, o, r);
   float nn = box_at(flat, H, W, y - r + 1, x - r + 1, o, r);
   float pn = box_at(flat, H, W, y - r + 1, x + 2, o, r);
@@ -162,12 +170,23 @@ extern "C" int vp_blob_response(const float* flat, int H, int W, int o,
   long long n_out = (long long)H * W;
   if (n_out > 0) {
     circ_kernel<<<(unsigned)((n_ext + kThreads - 1) / kThreads), kThreads, 0,
-                  s>>>(flat, H, W, o, r, inv_rr, circ_ext);
+                  s>>>(flat, H, W, o, r, 1, inv_rr, circ_ext);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     response_kernel<<<(unsigned)((n_out + kThreads - 1) / kThreads), kThreads,
                       0, s>>>(flat, H, W, spans, inv_n, th, circ_ext, ms,
                               circ, m0, m1, m2);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vp_circularity(const float* flat, int H, int W, int o, int r,
+                              float inv_rr, float* circ, void* stream) {
+  if (r < 2) return (int)cudaErrorInvalidValue;
+  long long n_out = (long long)H * W;
+  if (n_out > 0) {
+    circ_kernel<<<(unsigned)((n_out + kThreads - 1) / kThreads), kThreads, 0,
+                  (cudaStream_t)stream>>>(flat, H, W, o, r, 0, inv_rr, circ);
   }
   return (int)cudaGetLastError();
 }

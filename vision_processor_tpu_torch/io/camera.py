@@ -12,9 +12,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from vision_processor_tpu.utils.config import CameraSection
-from vision_processor_tpu.utils.log import get_logger
-
+from ..utils.config import CameraSection
+from ..utils.log import get_logger
 from .synthetic import Scene, render_raw
 
 log = get_logger(__name__)
@@ -41,7 +40,7 @@ class CameraDriver:
         return 1.0 / 30.0
 
     def get_time(self) -> float:
-        from vision_processor_tpu.net.udp import get_real_time
+        from ..net.udp import get_real_time
 
         return get_real_time()
 

@@ -20,14 +20,13 @@ from dataclasses import dataclass, field as dc_field
 
 import numpy as np
 
-from vision_processor_tpu.models.pattern import (
+from ..models.camera import CameraModel
+from ..models.pattern import (
     CENTER_BLOB_RADIUS,
     PATTERNS,
     PATTERN_POS,
     SIDE_BLOB_RADIUS,
 )
-
-from ..models.camera import CameraModel
 
 # Default scene palette (RGB 0-255)
 CARPET = np.array([40, 110, 45])

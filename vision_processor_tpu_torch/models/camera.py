@@ -149,7 +149,7 @@ class CameraModel:
         )
 
     def to_proto(self, cam_id: int):
-        from vision_processor_tpu.proto import SSL_GeometryCameraCalibration
+        from ..proto import SSL_GeometryCameraCalibration
 
         proto = SSL_GeometryCameraCalibration()
         proto.camera_id = cam_id

@@ -31,7 +31,8 @@ from itertools import combinations
 import numpy as np
 import torch
 
-from vision_processor_tpu.models.pattern import (
+from .camera import field2image_packed, image2field_packed
+from .pattern import (
     MIN_ROBOT_FRONT_DISTANCE,
     MIN_ROBOT_OPENING_ANGLE,
     MIN_ROBOT_RADIUS,
@@ -40,8 +41,6 @@ from vision_processor_tpu.models.pattern import (
     PATTERN_LUT,
     PATTERN_POS,
 )
-
-from .camera import field2image_packed, image2field_packed
 
 TWO_PI = 2.0 * math.pi
 _INF = float("inf")
@@ -285,7 +284,11 @@ def detection_hypotheses(cfg: DetectorConfig, blob_pos, blob_valid,
 
 def _window_hypotheses(cfg, blob_pos, blob_valid, max_robot_radius, rank,
                        anchor_idx, anchor_pos, anchor_valid):
-    """Hypothesis search over one anchor window (see detection_hypotheses)."""
+    """Hypothesis search over one anchor window (see detection_hypotheses).
+    With VPTPU_COMBO_KERNEL=1 on the card the combo chain and its argmax
+    run fused (``ops.combo_fused.combo_chain``, kernel B6); otherwise, and
+    always on the CPU, as the unfused op chain."""
+    from ..ops.combo_fused import combo_chain, use_combo_kernel
     from ..ops.topk import query_select_topk
 
     a = anchor_idx.shape[0]
@@ -313,9 +316,6 @@ def _window_hypotheses(cfg, blob_pos, blob_valid, max_robot_radius, rank,
     ring_valid = torch.gather(sel_valid, 1, order)
     ring_count = ring_valid.sum(dim=-1, dtype=torch.int32)
 
-    combo_ok = tab["combo_max"][None, :] < ring_count[:, None]
-    combo_ok &= (ring_count[:, None] >= 4) & anchor_valid[:, None]
-
     ring_pos = blob_pos[ring_idx]  # (A, K, 2)
     ring9 = torch.cat([anchor_pos[:, None, :], ring_pos], dim=1)
     n9 = k + 1
@@ -332,39 +332,59 @@ def _window_hypotheses(cfg, blob_pos, blob_valid, max_robot_radius, rank,
 
     pat = PATTERN_POS.astype(np.float32)
     pbar = pat.sum(axis=0)
-    o_cos = u2 @ tab["w_cos"]  # (A, C), full f32
-    o_sin = u2 @ tab["w_sin"]
-    norm2 = o_cos * o_cos + o_sin * o_sin
-    ok_n = norm2 > 0.0
-    inv_n = torch.where(ok_n, torch.rsqrt(torch.clamp_min(norm2, 1e-30)), 0.0)
-    cc = torch.where(ok_n, o_cos * inv_n, 1.0)
-    ss = o_sin * inv_n
+    if use_combo_kernel(u2):
+        # fused chain + argmax (kernel B6); the matmuls stay full-f32
+        # matmuls, written into one (12, A, C) buffer in combo_chain's order
+        c = tab["combo_max"].shape[0]
+        maps = torch.empty((12, a, c), dtype=torch.float32, device=dev)
+        torch.matmul(u2, tab["w_cos"], out=maps[0])
+        torch.matmul(u2, tab["w_sin"], out=maps[1])
+        torch.matmul(ring9[..., 0], tab["count9"], out=maps[2])
+        torch.matmul(ring9[..., 1], tab["count9"], out=maps[3])
+        for s in range(4):
+            torch.matmul(ring9[..., 0], tab["slot_t"][s], out=maps[4 + s])
+            torch.matmul(ring9[..., 1], tab["slot_t"][s], out=maps[8 + s])
+        best_score, cc_w, ss_w, posx_w, posy_w, best = combo_chain(
+            maps, anchor_pos, ring_count, anchor_valid, tab["combo_max"], pat, pbar)
+        best = best.long()
+        best_orient = torch.atan2(ss_w, cc_w)
+        best_pos = torch.stack([posx_w, posy_w], dim=-1)
+    else:
+        o_cos = u2 @ tab["w_cos"]  # (A, C), full f32
+        o_sin = u2 @ tab["w_sin"]
+        norm2 = o_cos * o_cos + o_sin * o_sin
+        ok_n = norm2 > 0.0
+        inv_n = torch.where(ok_n, torch.rsqrt(torch.clamp_min(norm2, 1e-30)), 0.0)
+        cc = torch.where(ok_n, o_cos * inv_n, 1.0)
+        ss = o_sin * inv_n
 
-    sum_x = ring9[..., 0] @ tab["count9"]
-    sum_y = ring9[..., 1] @ tab["count9"]
-    pos_x = (sum_x - (cc * float(pbar[0]) - ss * float(pbar[1]))) / 5.0
-    pos_y = (sum_y - (ss * float(pbar[0]) + cc * float(pbar[1]))) / 5.0
+        sum_x = ring9[..., 0] @ tab["count9"]
+        sum_y = ring9[..., 1] @ tab["count9"]
+        pos_x = (sum_x - (cc * float(pbar[0]) - ss * float(pbar[1]))) / 5.0
+        pos_y = (sum_y - (ss * float(pbar[0]) + cc * float(pbar[1]))) / 5.0
 
-    offset_score = None
-    for s5 in range(5):
-        if s5 == 0:
-            p5x = anchor_pos[:, 0:1]
-            p5y = anchor_pos[:, 1:2]
-        else:
-            p5x = ring9[..., 0] @ tab["slot_t"][s5 - 1]
-            p5y = ring9[..., 1] @ tab["slot_t"][s5 - 1]
-        px_, py_ = float(pat[s5, 0]), float(pat[s5, 1])
-        dx = (p5x - (pos_x + (cc * px_ - ss * py_))) / 10.0
-        dy = (p5y - (pos_y + (ss * px_ + cc * py_))) / 10.0
-        sc = 1.0 / (1.0 + dx * dx + dy * dy)
-        offset_score = sc if offset_score is None else torch.minimum(offset_score, sc)
+        offset_score = None
+        for s5 in range(5):
+            if s5 == 0:
+                p5x = anchor_pos[:, 0:1]
+                p5y = anchor_pos[:, 1:2]
+            else:
+                p5x = ring9[..., 0] @ tab["slot_t"][s5 - 1]
+                p5y = ring9[..., 1] @ tab["slot_t"][s5 - 1]
+            px_, py_ = float(pat[s5, 0]), float(pat[s5, 1])
+            dx = (p5x - (pos_x + (cc * px_ - ss * py_))) / 10.0
+            dy = (p5y - (pos_y + (ss * px_ + cc * py_))) / 10.0
+            sc = 1.0 / (1.0 + dx * dx + dy * dy)
+            offset_score = sc if offset_score is None else torch.minimum(offset_score, sc)
 
-    score = torch.where(combo_ok, offset_score, 0.0)
-    best = torch.argmax(score, dim=-1)
-    take = lambda arr: torch.gather(arr, 1, best[:, None])[:, 0]
-    best_score = take(score)
-    best_orient = torch.atan2(take(ss), take(cc))
-    best_pos = torch.stack([take(pos_x), take(pos_y)], dim=-1)
+        combo_ok = tab["combo_max"][None, :] < ring_count[:, None]
+        combo_ok &= (ring_count[:, None] >= 4) & anchor_valid[:, None]
+        score = torch.where(combo_ok, offset_score, 0.0)
+        best = torch.argmax(score, dim=-1)
+        take = lambda arr: torch.gather(arr, 1, best[:, None])[:, 0]
+        best_score = take(score)
+        best_orient = torch.atan2(take(ss), take(cc))
+        best_pos = torch.stack([take(pos_x), take(pos_y)], dim=-1)
 
     best_combo = tab["combos"][best]  # (A, 4) ring slot indices
     best_sides = torch.gather(ring_idx, 1, best_combo)

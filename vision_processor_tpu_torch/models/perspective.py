@@ -10,11 +10,10 @@ from dataclasses import dataclass, field as dc_field
 
 import numpy as np
 
-from vision_processor_tpu.models.pattern import CENTER_BLOB_RADIUS, SIDE_BLOB_RADIUS
-from vision_processor_tpu.utils.log import get_logger
-
 from ..net.geometry_io import FieldSize
+from ..utils.log import get_logger
 from .camera import CameraModel, goal_boundary_width
+from .pattern import CENTER_BLOB_RADIUS, SIDE_BLOB_RADIUS
 
 log = get_logger(__name__)
 

@@ -5,9 +5,12 @@ kernel/gradientDot.cl, satHorizontal.cl + satVertical.cl,
 satBlobCenter.cl, blobList.cl). The eager chain here — gradient dot,
 summed-area table, quadrant circularity, local max, span-sum disc
 statistics, score — is the reference and the CPU path of the fused
-response kernel (ops/blob_fused.py, kernel B2). Compaction
+kernels (ops/blob_fused.py, kernels B2 and B5). Compaction
 (``_compact_masked``) keeps the JAX package's three exact occupancy tiers;
-its row stage is ``ops.topk.row_topk`` (kernel B3 on the card).
+its row stage is ``ops.topk.row_topk`` (kernel B3 on the card). Two
+extractions sit on it: ``extract_blobs_scored`` (score-first, the
+default) and ``extract_blobs`` (circularity-first: compaction by
+circularity, then disc statistics at the candidates only).
 
 Cumulative sums follow the order XLA uses for ``jnp.cumsum`` on the CPU
 (sequential inside chunks of 16, chunk totals scanned recursively), so the
@@ -110,6 +113,23 @@ def disc_offsets(radius: int) -> np.ndarray:
     return np.array(out, dtype=np.int32)
 
 
+def disc_stats(flat: torch.Tensor, radius: int):
+    """Per-pixel disc sums of the flat image and its square as a depthwise
+    convolution with a 0/1 disc kernel on the edge-padded image (the JAX
+    package's conv form; a reference for the tests). Returns (s1, s2, n)."""
+    r = radius
+    offs = disc_offsets(r)
+    mask = torch.zeros((2 * r + 1, 2 * r + 1), dtype=flat.dtype, device=flat.device)
+    mask[offs[:, 0] + r, offs[:, 1] + r] = 1.0
+    x = edge_pad(flat, r, r, r, r).permute(2, 0, 1)[None]  # NCHW, C=3
+    kern = mask.expand(3, 1, 2 * r + 1, 2 * r + 1)
+
+    def conv(v):
+        return torch.nn.functional.conv2d(v, kern, groups=3)[0].permute(1, 2, 0)
+
+    return conv(x), conv(x * x), len(offs)
+
+
 def disc_stats_sat(flat: torch.Tensor, radius: int):
     """Per-pixel disc sums of the flat image and its square via row prefix
     sums (one shifted difference per disc row). Returns (s1, s2, n)."""
@@ -156,6 +176,31 @@ def subpixel_peak(neg: torch.Tensor, center: torch.Tensor,
     denom = neg - 2 * center + pos
     safe = torch.where(denom != 0, denom, torch.ones_like(denom))
     return torch.where(denom != 0, 0.5 * (neg - pos) / safe, 0.0)
+
+
+_DISC_TAPS: dict = {}
+
+
+def _disc_taps(radius: int, device) -> torch.Tensor:
+    """(n, 2) i64 disc offsets (dy, dx) on ``device``, cached per device."""
+    key = (radius, str(device))
+    if key not in _DISC_TAPS:
+        _DISC_TAPS[key] = torch.from_numpy(disc_offsets(radius).astype(np.int64)).to(device)
+    return _DISC_TAPS[key]
+
+
+def disc_stats_at(flat: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
+                  radius: int):
+    """Disc sums of value and value^2 at K candidate pixels only: gathers of
+    the disc taps per candidate, clamp-to-edge (reference
+    kernel/blobList.cl:58-75). Returns (s1 (K, 3), s2 (K, 3), n)."""
+    h, w = flat.shape[:2]
+    offs = _disc_taps(radius, flat.device)
+    yy = (iy[:, None] + offs[None, :, 0]).clamp(0, h - 1)  # (K, n)
+    xx = (ix[:, None] + offs[None, :, 1]).clamp(0, w - 1)
+    v = flat.reshape(-1, flat.shape[-1])[(yy * w + xx).reshape(-1)]
+    v = v.reshape(iy.shape[0], offs.shape[0], flat.shape[-1])
+    return v.sum(dim=1), (v * v).sum(dim=1), offs.shape[0]
 
 
 def blob_response(flat: torch.Tensor, circ: torch.Tensor, circ_threshold,
@@ -218,6 +263,64 @@ def _compact_masked(masked: torch.Tensor, max_blobs: int):
     return _flat_map(masked, max_blobs)
 
 
+def _neighbour_idx(iy, ix, h: int, w: int, centre: bool) -> torch.Tensor:
+    """Flat indices of the (centre,) left, right, up and down neighbours,
+    clamp-to-edge: (K, 5) or (K, 4)."""
+    cols = [
+        iy * w + torch.clamp_min(ix - 1, 0),
+        iy * w + torch.clamp_max(ix + 1, w - 1),
+        torch.clamp_min(iy - 1, 0) * w + ix,
+        torch.clamp_max(iy + 1, h - 1) * w + ix,
+    ]
+    return torch.stack(([iy * w + ix] if centre else []) + cols, dim=-1)
+
+
+def extract_blobs(flat, circ, circ_threshold, min_score, radius: int,
+                  max_blobs: int):
+    """Circularity-first blob extraction (the JAX package's
+    ``extract_blobs``): threshold + 4-neighbour local max on the
+    circularity, compaction into ``max_blobs`` slots by descending
+    circularity, disc colour mean/stddev and score = circ / sum(stddev) at
+    those candidates only (reference kernel/blobList.cl:48-75), then the
+    slots ordered by descending score (a stable sort: ties keep the lower
+    slot, as ``lax.top_k`` does)."""
+    h, w = circ.shape
+    valid = (circ >= circ_threshold) & local_max_mask(circ)
+    count = valid.sum(dtype=torch.int32)
+
+    masked = torch.where(valid, circ, _NEG_INF)
+    top_circ, idx = _compact_masked(masked, max_blobs)
+    slot_valid = top_circ > _NEG_INF
+    idx = idx.long()
+    iy = idx // w
+    ix = idx % w
+
+    s1, s2, n = disc_stats_at(flat, iy, ix, radius)
+    mean = s1 / n
+    var = torch.clamp_min(s2 / n - mean * mean, 0.0)
+    stddev_sum = _sum3(torch.sqrt(var))
+    c0 = torch.where(slot_valid, top_circ, 0.0)
+    score = c0 / torch.clamp_min(stddev_sum, 1e-12)
+    slot_valid = slot_valid & (score >= min_score)
+
+    nv = circ.reshape(-1)[_neighbour_idx(iy, ix, h, w, False).reshape(-1)].reshape(-1, 4)
+    px = ix.to(torch.float32) + subpixel_peak(nv[:, 0], c0, nv[:, 1])
+    py = iy.to(torch.float32) + subpixel_peak(nv[:, 2], c0, nv[:, 3])
+
+    sort_score, order = torch.sort(torch.where(slot_valid, score, _NEG_INF),
+                                   descending=True, stable=True)
+    slot_valid = sort_score > _NEG_INF
+    return {
+        "pos": torch.stack([px, py], dim=-1)[order],
+        "color": mean[order],
+        "center": flat.reshape(-1, flat.shape[-1])[idx][order],
+        "circ": c0[order],
+        "score": torch.where(slot_valid, sort_score, 0.0),
+        "valid": slot_valid,
+        "count": count,
+    }
+
+
 def extract_blobs_scored(flat, circ, masked_score, mean, count, max_blobs: int):
     """Blob compaction from a per-pixel response (see blob_response): slots
     in descending score order with sub-pixel peak positions, disc mean
@@ -229,18 +332,7 @@ def extract_blobs_scored(flat, circ, masked_score, mean, count, max_blobs: int):
     iy = idx // w
     ix = idx % w
 
-    cflat = circ.reshape(-1)
-    nidx = torch.stack(
-        [
-            iy * w + ix,
-            iy * w + torch.clamp_min(ix - 1, 0),
-            iy * w + torch.clamp_max(ix + 1, w - 1),
-            torch.clamp_min(iy - 1, 0) * w + ix,
-            torch.clamp_max(iy + 1, h - 1) * w + ix,
-        ],
-        dim=-1,
-    )
-    nv = cflat[nidx.reshape(-1)].reshape(-1, 5)
+    nv = circ.reshape(-1)[_neighbour_idx(iy, ix, h, w, True).reshape(-1)].reshape(-1, 5)
     c0 = torch.where(slot_valid, nv[:, 0], 0.0)
     px = ix.to(torch.float32) + subpixel_peak(nv[:, 1], c0, nv[:, 2])
     py = iy.to(torch.float32) + subpixel_peak(nv[:, 3], c0, nv[:, 4])

@@ -1,6 +1,6 @@
-"""Fused blob response (kernel B2): counterpart of
-vision_processor_tpu/ops/blob_pallas.py (``blob_response_fused``,
-``response_kernel_fits``).
+"""Fused blob response (kernel B2) and fused circularity (kernel B5):
+counterpart of vision_processor_tpu/ops/blob_pallas.py
+(``blob_response_fused``, ``response_kernel_fits``, ``circularity_fused``).
 
 One pass produces the score-first extraction inputs from the flat (H, W, 3)
 map: the masked score, the circularity and the three disc-mean planes. The
@@ -8,9 +8,11 @@ circularity uses LOCAL (r-1)x(r-1) box sums of the gradient dot, as the
 TPU kernel does, instead of the global summed-area table of the eager chain
 (ops/blob.py), so values agree with the eager chain to f32 reassociation in
 the interior and follow the fused kernel's edge-replication policy in the
-border band. On the card the CUDA kernel of ``csrc/blob_fused.cu`` runs;
-``_blob_response_fused_plain`` is its plain PyTorch version, used for CPU
-tensors and held against the kernel on the card.
+border band. ``circularity_fused`` computes the circularity alone, for
+the circularity-first extraction. On the card the CUDA kernels of
+``csrc/blob_fused.cu`` run; ``_blob_response_fused_plain`` and
+``_circularity_fused_plain`` are their plain PyTorch versions, used for
+CPU tensors and held against the kernels on the card.
 """
 from __future__ import annotations
 
@@ -20,7 +22,9 @@ import numpy as np
 import torch
 
 from . import cuda
-from .blob import disc_offsets, edge_pad
+from .blob import (
+    circularity, disc_offsets, edge_pad, gradient_dot, summed_area_table,
+)
 
 _NEG_INF = float("-inf")
 
@@ -47,19 +51,16 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _blob_response_fused_plain(flat: torch.Tensor, circ_threshold, o: int,
-                               r: int, dr: int):
-    """Plain PyTorch version of kernel B2, in the TPU kernel's op order."""
-    h, w = flat.shape[:2]
-    p = o + r + 2  # margin of the edge-replicated copy
-    fp = edge_pad(flat, p, p, p, p)
-    chans = [fp[..., c] for c in range(3)]
+def _circ_plain(chans, p: int, h: int, w: int, o: int, r: int, ext: int):
+    """Circularity on rows/cols [-ext, H + ext) from the three channels
+    edge-padded by a margin ``p >= o + r + ext``, in the TPU kernels' op
+    order (the circ part of kernels B2 and B5)."""
 
     def sl(t, y0, ny, x0, nx):
         return t[p + y0: p + y0 + ny, p + x0: p + x0 + nx]
 
-    # gradient dot on rows/cols [-(r+1), H + r + 1)
-    gy0, ngy, ngx = -(r + 1), h + 2 * r + 2, w + 2 * r + 2
+    # gradient dot on rows/cols [-(r+ext), H + r + ext)
+    gy0, ngy, ngx = -(r + ext), h + 2 * (r + ext), w + 2 * (r + ext)
     g = None
     for c in chans:
         gx = sl(c, gy0, ngy, gy0 + o, ngx) - sl(c, gy0, ngy, gy0 - o, ngx)
@@ -77,16 +78,28 @@ def _blob_response_fused_plain(flat: torch.Tensor, circ_threshold, o: int,
     for a in range(1, r - 1):
         box = box + acc[a: a + nby]
 
-    # circularity on rows/cols [-1, H + 1): box index = coordinate + r + 1
-    def bx(y0, x0):
-        return box[y0 + r + 1: y0 + r + 1 + h + 2, x0 + r + 1: x0 + r + 1 + w + 2]
+    # B(y + dy, x + dx) over the output rows/cols: box index = coordinate + r + ext
+    def bx(dy, dx):
+        return box[dy + r: dy + r + h + 2 * ext, dx + r: dx + r + w + 2 * ext]
 
-    pp = bx(1, 1)            # B(y + 2, x + 2), y = x = -1
-    nn = bx(-r, -r)          # B(y - r + 1, x - r + 1)
-    pn = bx(-r, 1)           # B(y - r + 1, x + 2)
-    np_ = bx(1, -r)          # B(y + 2, x - r + 1)
-    circ_ext = torch.minimum(torch.minimum(pp, nn), torch.minimum(-pn, -np_))
-    circ_ext = circ_ext * _f32(1.0 / (r * r))
+    pp = bx(2, 2)
+    nn = bx(1 - r, 1 - r)
+    pn = bx(1 - r, 2)
+    np_ = bx(2, 1 - r)
+    circ = torch.minimum(torch.minimum(pp, nn), torch.minimum(-pn, -np_))
+    return circ * _f32(1.0 / (r * r))
+
+
+def _blob_response_fused_plain(flat: torch.Tensor, circ_threshold, o: int,
+                               r: int, dr: int):
+    """Plain PyTorch version of kernel B2, in the TPU kernel's op order."""
+    h, w = flat.shape[:2]
+    p = o + r + 2  # margin of the edge-replicated copy
+    fp = edge_pad(flat, p, p, p, p)
+    chans = [fp[..., c] for c in range(3)]
+
+    # circularity on rows/cols [-1, H + 1) (the local-max neighbours)
+    circ_ext = _circ_plain(chans, p, h, w, o, r, 1)
     circ = circ_ext[1: h + 1, 1: w + 1]
     lmax = (
         (circ_ext[1: h + 1, 0:w] <= circ)
@@ -164,3 +177,38 @@ def blob_response_fused(flat: torch.Tensor, circ_threshold, grad_offset: int,
         means = (m0, m1, m2)
     count = (ms > _NEG_INF).sum(dtype=torch.int32)
     return ms, circ, means, count
+
+
+def _circularity_fused_plain(flat: torch.Tensor, o: int, r: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel B5: the circ part of
+    ``_blob_response_fused_plain`` on the unwidened grid."""
+    h, w = flat.shape[:2]
+    p = o + r
+    fp = edge_pad(flat, p, p, p, p)
+    return _circ_plain([fp[..., c] for c in range(3)], p, h, w, o, r, 0)
+
+
+def circularity_fused(flat: torch.Tensor, grad_offset: int,
+                      sat_radius: int) -> torch.Tensor:
+    """flat (H, W, 3) f32 -> circularity (H, W): local box sums, as the
+    TPU kernel computes it (f32-reassociation parity with the eager chain in
+    the interior). Below ``sat_radius`` 2 the (r-1)^2 box is empty and the
+    eager chain of ops/blob.py runs, as in the JAX package."""
+    o, r = int(grad_offset), int(sat_radius)
+    if r < 2:
+        return circularity(summed_area_table(gradient_dot(flat, o)), r)
+    if not flat.is_cuda:
+        return _circularity_fused_plain(flat, o, r)
+    flat = flat.contiguous()
+    cuda.require(flat, "flat", torch.float32, 3)
+    h, w, ch = flat.shape
+    if ch != 3:
+        raise ValueError(f"circularity_fused: flat {tuple(flat.shape)}")
+    circ = torch.empty((h, w), dtype=torch.float32, device=flat.device)
+    rc = cuda.lib().vp_circularity(
+        flat.data_ptr(), h, w, o, r, _f32(1.0 / (r * r)), circ.data_ptr(),
+        cuda.stream(flat),
+    )
+    cuda.check(rc, "circularity_fused")
+    cuda.LAUNCHES["circularity_fused"] += 1
+    return circ

@@ -1,16 +1,17 @@
 """Build, load and launch the hand-written Hopper kernels (``csrc/*.cu``).
 
-The kernels are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface and loaded with ``ctypes``: a build from
-the repository's sources alone takes seconds, so the first launch in a
-process builds it into ``build/vptpu_torch_kernels/`` (a directory that
+The kernels are compiled with ``nvcc`` for ``sm_90a`` and linked into one
+shared library with a plain C interface, loaded with ``ctypes``: the
+sources compile in parallel, one ``nvcc`` each, from the repository's
+sources alone, in seconds. The first launch in a process builds the
+library into ``build/vptpu_torch_kernels/`` (a directory that
 ``.gitignore`` lists), keyed by a hash of the sources.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises on anything but 0. Each
-wrapper (ops/warp.py, ops/blob_fused.py, ops/topk.py) counts its own
-launches in :data:`LAUNCHES`, so a caller can show that a run went
-through the kernels.
+wrapper (ops/warp.py, ops/blob_fused.py, ops/topk.py, ops/gather_corners.py,
+ops/combo_fused.py) counts its own launches in :data:`LAUNCHES`, so a
+caller can show that a run went through the kernels.
 """
 from __future__ import annotations
 
@@ -30,8 +31,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "vptpu_torch_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 # launches per kernel wrapper; reset with reset_launches()
 LAUNCHES: dict[str, int] = {
@@ -39,6 +41,9 @@ LAUNCHES: dict[str, int] = {
     "blob_response_fused": 0,
     "row_topk": 0,
     "query_select_topk": 0,
+    "gather_corners": 0,
+    "circularity_fused": 0,
+    "combo_chain": 0,
 }
 
 _lock = threading.Lock()
@@ -48,6 +53,7 @@ BUILD_INFO: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # src, pos, out, ch, R, C, n_out, stream
     "vp_band_pass": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -59,6 +65,13 @@ _SIGNATURES = {
     "vp_row_topk": [_P, _I, _I, _I, _P, _P, _P],
     # q, r2, b, rank, Q, K, m, by_rank, vals, idx, stream
     "vp_query_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # stack, idx, n_out, out, stream
+    "vp_gather_corners": [_P, _P, _L, _P, _P],
+    # flat, H, W, o, r, inv_rr, circ, stream
+    "vp_circularity": [_P, _I, _I, _I, _I, _F, _P, _P],
+    # maps, A, C, anchor_pos, ring_count, anchor_valid, combo_max, pattern,
+    # outf, outi, stream
+    "vp_combo_chain": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -83,30 +96,50 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library (cached by source hash)."""
+    """Compile csrc/*.cu into the shared library (cached by source hash):
+    one nvcc per source, all started together, then one link."""
     srcs = sources()
     h = hashlib.sha256()
     for s in srcs:
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     out = BUILD_DIR / f"libvptpu_torch_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
         BUILD_INFO.update(path=str(out), seconds=0.0, cached=True)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for s, o in zip(srcs, objs)
+        ]
+        logs, failed = [], []
+        for s, proc in zip(srcs, procs):
+            stdout, stderr = proc.communicate()
+            logs.append(f"== {s.name}\n{stdout}{stderr}")
+            if proc.returncode != 0:
+                failed.append(f"{s.name} ({proc.returncode})")
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n" + "\n".join(logs))
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)
     BUILD_INFO.update(
         path=str(out), seconds=time.perf_counter() - t0, cached=False,
-        ptxas=proc.stderr,
+        ptxas="\n".join(logs),
     )
     return out
 

@@ -3,14 +3,17 @@
 Counterpart of vision_processor_tpu/ops/frame.py (reference
 kernel/raw2quad.cl:21-39, kernel/resampling.cl:52-105). The gather path
 (``resample_grid`` + ``resample_flat_grid_raw``) is the resample for
-cameras that ``ops.warp.warp_fits`` rejects; the JAX package runs it as a
-plain XLA gather, so here it is plain torch indexing.
+cameras that ``ops.warp.warp_fits`` rejects; its one gather of corner-stack
+rows is ``ops.gather_corners.gather_corners`` (kernel B7 on the card, the
+function of the JAX package's ``gather_corners_pallas``). The corner stack
+itself stays plain torch.
 """
 from __future__ import annotations
 
 import torch
 
 from ..models.camera import field2image_packed
+from .gather_corners import gather_corners
 
 # Supported raw formats
 RGGB = "RGGB"
@@ -121,7 +124,7 @@ def resample_flat_grid_raw(raw: torch.Tensor, grid: dict, fmt: str) -> torch.Ten
     """raw frame -> (Hf, Wf, 3) flat dRGB grid by the cached-grid gather
     (bit-identical semantics to the JAX package's resample_flat_grid_raw)."""
     stacked = corner_stack(raw, fmt).reshape(-1, 16)
-    g = stacked[grid["idx"].long()].to(torch.float32)
+    g = gather_corners(stacked, grid["idx"])
     g00, g01, g10, g11 = g[..., 0:4], g[..., 4:8], g[..., 8:12], g[..., 12:16]
     offs = torch.tensor(_PLANE_OFFSETS[fmt], dtype=torch.float32).to(raw.device)
     fx = (grid["ub"][..., None] + offs[:, 0]).clamp(0.0, 1.0)

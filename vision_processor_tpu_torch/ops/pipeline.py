@@ -1,14 +1,19 @@
 """The blob machine: raw frame to compacted blobs (PyTorch port).
 
-Counterpart of vision_processor_tpu/ops/pipeline.py, score-first branch
-(the production default): Bayer split -> resample to the flat dRGB field
-grid (two-pass warp, kernel B1, or the cached-grid gather) -> per-pixel
-blob response (fused kernel B2 on the card, the eager chain on the CPU, as
-the JAX package uses Pallas on the TPU only) -> exact masked compaction
-(row stage kernel B3) -> field mm positions.
+Counterpart of vision_processor_tpu/ops/pipeline.py: Bayer split ->
+resample to the flat dRGB field grid (two-pass warp, kernel B1, or the
+cached-grid gather, kernel B7) -> extraction -> field mm positions. The
+extraction is score-first by default: the per-pixel blob response (fused
+kernel B2 on the card, the eager chain on the CPU, as the JAX package uses
+Pallas on the TPU only), then exact masked compaction by score (row stage
+kernel B3). With ``VPTPU_SCOREFIRST=0``, read at call time as the JAX
+package reads it at trace time, it is circularity-first: the circularity
+alone (kernel B5 on the card when ``sat_radius >= 2``, else the eager
+chain), compaction by circularity (B3), disc statistics at the candidates.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
@@ -99,6 +104,23 @@ def blob_response_map(cfg: BlobMachineConfig, flat: torch.Tensor,
     return ms, circ, mean, count
 
 
+def score_first() -> bool:
+    """The extraction order: score-first unless VPTPU_SCOREFIRST=0."""
+    return os.environ.get("VPTPU_SCOREFIRST", "1") != "0"
+
+
+def circularity_map(cfg: BlobMachineConfig, flat: torch.Tensor) -> torch.Tensor:
+    """The circularity alone: the fused kernel on a CUDA tensor when
+    ``sat_radius >= 2``, else the eager chain (SAT + quadrant reads)."""
+    if flat.is_cuda and cfg.sat_radius >= 2:
+        from .blob_fused import circularity_fused
+
+        return circularity_fused(flat, cfg.grad_offset, cfg.sat_radius)
+    return B.circularity(
+        B.summed_area_table(B.gradient_dot(flat, cfg.grad_offset)), cfg.sat_radius
+    )
+
+
 def blob_machine(cfg: BlobMachineConfig, raw: torch.Tensor, circ_threshold,
                  rs_grid: dict) -> dict:
     """Full frame -> blobs. Returns the blob slot dict; positions in field
@@ -113,9 +135,13 @@ def blob_machine(cfg: BlobMachineConfig, raw: torch.Tensor, circ_threshold,
     else:
         flat = F.resample_flat_grid_raw(raw, rs_grid, cfg.fmt)
 
-    ms, circ, mean, count = blob_response_map(cfg, flat, circ_threshold)
-    blobs = B.extract_blobs_scored(flat, circ, ms, mean, count,
-                                   max_blobs=cfg.max_blobs)
+    if score_first():
+        ms, circ, mean, count = blob_response_map(cfg, flat, circ_threshold)
+        blobs = B.extract_blobs_scored(flat, circ, ms, mean, count,
+                                       max_blobs=cfg.max_blobs)
+    else:
+        blobs = B.extract_blobs(flat, circularity_map(cfg, flat), circ_threshold,
+                                0.0, radius=cfg.disc_radius, max_blobs=cfg.max_blobs)
     offset = torch.as_tensor(cfg.field_offset, dtype=torch.float32, device=flat.device)
     blobs["field_pos"] = blobs["pos"] * cfg.field_scale + offset
     return blobs

@@ -234,7 +234,7 @@ def resolve_resample_mode(requested: str, entries, out_shape, plane_shape,
         return "gather"
     if cameras_fit_warp(entries, out_shape, plane_shape):
         return "warp"
-    from vision_processor_tpu.utils.log import get_logger
+    from ..utils.log import get_logger
 
     get_logger(__name__).info("warp_fits rejected the geometry; gather resample")
     return "gather"

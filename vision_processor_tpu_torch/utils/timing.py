@@ -16,7 +16,7 @@ from collections import defaultdict
 
 import torch
 
-from vision_processor_tpu.utils.log import get_logger
+from .log import get_logger
 
 log = get_logger(__name__)
 
