@@ -13,9 +13,8 @@ Phases (any failure exits non-zero and prints no result line):
    nvcc, and which of protobuf / yaml / cv2 import;
 2. build: compiles the port's CUDA kernels (csrc/*.cu, one nvcc each, in
    parallel) from the checkout;
-3. slice 1: one 1080p RGGB camera (camera 0 of the bench rig: 960x540
-   model, focal 900, k2 0.02, 4.5 m high, Div B field, 4 bots + ball, seed
-   7, noise 1.5) through ``Processor.device_step`` -> ``finish_frame`` at
+3. slice 1: one 1080p RGGB camera (camera 0 of the 4-camera bench rig, see
+   ``bench_rig``) through ``Processor.device_step`` -> ``finish_frame`` at
    max_blobs 2000, 32 tracked slots, resampling factor 1.25, on-device
    finishing, resample mode "auto" (must resolve to "warp"), with tracking
    fed back from the previous frame. Every frame after the first must find
@@ -23,14 +22,29 @@ Phases (any failure exits non-zero and prints no result line):
    been launched by this run (the band pass twice a frame); no tensor may
    leave the card inside ``device_step``;
 4. slice 2: the same camera in the other configuration: resample mode
-   "gather" (kernel B7), ``VPTPU_SCOREFIRST=0`` (circularity-first
+   "gather" (kernels E4 and B7), ``VPTPU_SCOREFIRST=0`` (circularity-first
    extraction, kernel B5) and ``VPTPU_COMBO_KERNEL=1`` (the fused combo
-   chain, kernel B6). The same detection bounds; B7, B5, B6 and B3 launched
-   once a frame, B4 twice, B1 and B2 never; at most 2 device->host reads a
-   frame and no tensor leaving the card inside ``device_step``;
-5. kernels vs their plain PyTorch versions on the card, on the slices' own
-   intermediates plus tie, exhausted-row and invalid-anchor cases, with
-   kernel, plain and library-call times and each kernel's bound.
+   chain, kernel B6). The same detection bounds; E4, B7, B5, B6 and B3
+   launched once a frame, B4 twice, B1 and B2 never; at most 2
+   device->host reads a frame and no tensor leaving the card inside
+   ``device_step``;
+5. slice 3: the whole 4-camera rig as one frame-set on the card, through
+   ``MultiCamApp.dispatch_frames`` -> ``finish_frames`` (the fleet without
+   sockets, ``MultiCamApp.offline``) in the default configuration with
+   resample mode "gather", for 10 frame-sets with tracking fed back from
+   the previous one. Every frame-set after the first must find each
+   camera's 4 robot ids within 30 mm and its ball within 40 mm (16 bots);
+   per frame-set E4 and B7 launched 4 times, B2 and B3 4 times, B4 8 times,
+   B1, B5 and B6 never; at most 2 device->host reads per camera inside the
+   dispatch and no tensor leaving the card there. Then 3 frame-sets of the
+   same rig in "auto" mode (must resolve to "warp": B1 8 times a frame-set,
+   E4 and B7 never), and one frame-set through the staggered plan
+   (``percam_core_step`` x 4 + ``staggered_tail_step``), which must equal
+   the batched step;
+6. kernels vs their plain PyTorch versions on the card, on the slices' own
+   intermediates plus tie, exhausted-row, invalid-anchor, partial-block
+   and BGR cases, with kernel, plain and library-call times and each
+   kernel's bound.
 
 Each slice is driven with the launch counts set to 0 just before it and
 read just after. The last line is ``{"ok": true, "device": {...}}``; the
@@ -50,6 +64,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "smoke"  # long outputs; --out moves them
 FRAMES = 10  # measured frames of each slice; the checks run on every one after the first
+WARP_FRAME_SETS = 3  # slice 3 in warp mode
+N_CAMS = 4
 
 # the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores
@@ -120,7 +136,7 @@ def build():
 
 
 # ---------------------------------------------------------------------------
-# phases 3 and 4: the slices
+# phases 3 to 5: the slices
 # ---------------------------------------------------------------------------
 
 FIELD = {
@@ -142,20 +158,32 @@ WRAPPERS = {
     "gather_corners": ("ops.frame", "gather_corners"),
     "circularity_fused": ("ops.blob_fused", "circularity_fused"),
     "combo_chain": ("ops.combo_fused", "combo_chain"),
+    "corner_stack": ("ops.frame", "corner_stack"),
 }
 
 # launches per frame on each slice's path; None: at least one in the run
 SLICE1_LAUNCHES = {"band_pass": 2, "blob_response_fused": None, "row_topk": None,
-                   "query_select_topk": None}
+                   "query_select_topk": None, "corner_stack": 0}
 SLICE2_LAUNCHES = {"gather_corners": 1, "circularity_fused": 1, "combo_chain": 1,
                    "row_topk": 1, "query_select_topk": 2, "band_pass": 0,
-                   "blob_response_fused": 0}
+                   "blob_response_fused": 0, "corner_stack": 1}
 SLICE2_ENV = {"VPTPU_SCOREFIRST": "0", "VPTPU_COMBO_KERNEL": "1"}
+# launches per frame-set of the 4-camera rig
+SLICE3_LAUNCHES = {"corner_stack": 4, "gather_corners": 4, "blob_response_fused": 4,
+                   "row_topk": 4, "query_select_topk": 8, "band_pass": 0,
+                   "circularity_fused": 0, "combo_chain": 0}
+SLICE3_WARP_LAUNCHES = {"band_pass": 8, "corner_stack": 0, "gather_corners": 0,
+                        "blob_response_fused": 4, "query_select_topk": 8,
+                        "circularity_fused": 0, "combo_chain": 0}
 
 
-def bench_camera0():
-    """Camera 0 of the 4-camera bench rig (bench.py build_rig), numpy only;
-    the geometry is the port's plain one (no protobuf)."""
+def bench_rig(n_cams: int = N_CAMS):
+    """The 4-camera bench rig (bench.py build_rig), numpy only: one camera
+    per field quadrant (960x540 model = 1080p RGGB raw, focal 900, k2 0.02,
+    4.5 m high over the Div B field), 4 bots with ids (cam * 4 + i) % 16,
+    alternately yellow and blue, and a ball each, seed 7, noise 1.5. The
+    geometry is the port's plain one (no protobuf) and holds every camera's
+    calibration. Returns (geometry, scenes, raws, (width, height))."""
     import numpy as np
 
     from vision_processor_tpu_torch.io.synthetic import (
@@ -168,29 +196,81 @@ def bench_camera0():
         calibration_from_model, geometry_from_dict,
     )
 
-    width, height, n_cams = 960, 540, 4
+    width, height = 960, 540
     geometry = geometry_from_dict(FIELD)
+    geometry.calib = []
     rng = np.random.default_rng(7)
-    lo, hi = visible_field_extent_estimation(0, n_cams, geometry.field, False)
-    center = (lo + hi) / 2
-    model = CameraModel(
-        focal_length=900.0,
-        principal_point=np.array([width / 2, height / 2]),
-        distortion_k2=0.02,
-        pos=np.array([center[0], center[1], 4500.0]),
-        size=np.array([width, height]),
-    )
-    geometry.calib = [calibration_from_model(model, 0)]
-    bots = []
-    for i in range(4):
-        bx = float(rng.uniform(lo[0] + 400, hi[0] - 400))
-        by = float(rng.uniform(lo[1] + 400, hi[1] - 400))
-        bots.append(SceneBot(i % 16, "yellow" if i % 2 == 0 else "blue", bx, by,
-                             float(rng.uniform(-3, 3))))
-    scene = Scene(bots=bots, balls=[SceneBall(float(center[0]), float(center[1]))],
-                  noise_sigma=1.5, seed=0)
-    raw = render_raw(model, geometry.field, scene, "RGGB")
-    return geometry, scene, raw, (width, height)
+    scenes, raws = [], []
+    for cam_id in range(n_cams):
+        lo, hi = visible_field_extent_estimation(cam_id, n_cams, geometry.field, False)
+        center = (lo + hi) / 2
+        model = CameraModel(
+            focal_length=900.0,
+            principal_point=np.array([width / 2, height / 2]),
+            distortion_k2=0.02,
+            pos=np.array([center[0], center[1], 4500.0]),
+            size=np.array([width, height]),
+        )
+        geometry.calib.append(calibration_from_model(model, cam_id))
+        bots = []
+        for i in range(4):
+            bx = float(rng.uniform(lo[0] + 400, hi[0] - 400))
+            by = float(rng.uniform(lo[1] + 400, hi[1] - 400))
+            bots.append(SceneBot((cam_id * 4 + i) % 16, "yellow" if i % 2 == 0 else "blue",
+                                 bx, by, float(rng.uniform(-3, 3))))
+        scene = Scene(bots=bots, balls=[SceneBall(float(center[0]), float(center[1]))],
+                      noise_sigma=1.5, seed=cam_id)
+        scenes.append(scene)
+        raws.append(render_raw(model, geometry.field, scene, "RGGB"))
+    return geometry, scenes, raws, (width, height)
+
+
+def detection_errors(scene, wrapper):
+    """(ids found, per-truth robot errors in mm (inf where missed), the
+    ball's error in mm) of one camera's detection frame."""
+    import numpy as np
+
+    truth = {(b.bot_id + (16 if b.team == "blue" else 0)): b for b in scene.bots}
+    ball = scene.balls[0]
+    d = wrapper.detection
+    found = {}
+    for team, off in ((d.robots_yellow, 0), (d.robots_blue, 16)):
+        for r in team:
+            found[r.robot_id + off] = (r.x, r.y)
+    errs = [float(np.hypot(found[bid][0] - b.x, found[bid][1] - b.y)) if bid in found
+            else float("inf") for bid, b in truth.items()]
+    berr = min((float(np.hypot(b.x - ball.x, b.y - ball.y)) for b in d.balls),
+               default=float("inf"))
+    return found, errs, berr
+
+
+def check_detections(label: str, scene, wrapper) -> tuple[dict, float, float]:
+    """Fails unless every robot id is found within 30 mm and the ball
+    within 40 mm; returns (found, worst robot error, ball error)."""
+    found, errs, berr = detection_errors(scene, wrapper)
+    if max(errs) > 30.0:
+        fail(f"{label}: robots {sorted(found)}, max error {max(errs):.2f} mm")
+    if berr > 40.0:
+        fail(f"{label}: ball error {berr:.2f} mm")
+    return found, max(errs), berr
+
+
+def tracked_from(wrappers: dict, now: float, slots: int):
+    """The tracked prior from the previous frame's detection frames, by
+    camera, as the UDP tracker builds it."""
+    from types import SimpleNamespace
+
+    from vision_processor_tpu_torch.app.processor import TrackedArrays
+
+    ents = {}
+    for cam, wrapper in wrappers.items():
+        det = wrapper.detection
+        ents[cam] = [
+            SimpleNamespace(id=r.robot_id + off, x=r.x, y=r.y, z=r.height, w=r.orientation,
+                            vx=0.0, vy=0.0, vw=0.0, timestamp=now)
+            for team, off in ((det.robots_yellow, 0), (det.robots_blue, 16)) for r in team
+        ]
+    return TrackedArrays.build(ents, now, slots)
 
 
 class Recorder:
@@ -265,21 +345,30 @@ def audit_device_step(torch, fn):
     return res, audit.items, audit.d2h
 
 
-def run_slice(torch, recorder, label: str, mode: str, want_mode: str,
-              want_launches: dict) -> dict:
-    """Drive the bench camera through the processor for FRAMES frames with
-    tracking fed back, checking detections, launches and device->host
-    reads; the launch counts are set to 0 just before and read just after."""
-    phase(label)
-    import numpy as np
+def check_launches(label: str, launches: dict, want: dict, per: int) -> None:
+    """want: launches per frame (or frame-set); None: at least one."""
+    for name, n_per in want.items():
+        n = launches[name]
+        if n_per is None and n <= 0:
+            fail(f"{label}: kernel {name} was not launched")
+        if n_per is not None and n != n_per * per:
+            fail(f"{label}: {name} launched {n} times, expected {n_per * per}")
 
+
+def run_slice(torch, recorder, rig, label: str, mode: str, want_mode: str,
+              want_launches: dict) -> dict:
+    """Drive the bench rig's camera 0 through the processor for FRAMES
+    frames with tracking fed back, checking detections, launches and
+    device->host reads; the launch counts are set to 0 just before and read
+    just after."""
+    phase(label)
     from vision_processor_tpu_torch.app.processor import (
         Processor, TrackedArrays, VisionConfig,
     )
     from vision_processor_tpu_torch.ops import cuda as K
-    from types import SimpleNamespace
 
-    geometry, scene, raw, (width, height) = bench_camera0()
+    geometry, scenes, raws, (width, height) = rig
+    scene, raw = scenes[0], raws[0]
     cfg = VisionConfig()
     cfg.max_blobs = 2000
     cfg.resampling_factor = 1.25
@@ -289,22 +378,10 @@ def run_slice(torch, recorder, label: str, mode: str, want_mode: str,
     dev = torch.device("cuda", 0)
     proc = Processor(cfg, max_tracked=32, device=dev)
     proc.geometry_check(width, height, geometry, 1)
-
-    truth = {(b.bot_id + (16 if b.team == "blue" else 0)): b for b in scene.bots}
-    ball = scene.balls[0]
-
-    def tracked_from(wrapper, now):
-        ents = []
-        det = wrapper.detection
-        for team, off in ((det.robots_yellow, 0), (det.robots_blue, 16)):
-            for r in team:
-                ents.append(SimpleNamespace(
-                    id=r.robot_id + off, x=r.x, y=r.y, z=r.height, w=r.orientation,
-                    vx=0.0, vy=0.0, vw=0.0, timestamp=now))
-        return TrackedArrays.build({0: ents}, now, proc.det_cfg.max_tracked)
+    slots = proc.det_cfg.max_tracked
 
     # one warm-up frame (first-use allocations, kernel build already done)
-    tracked = TrackedArrays.build({}, 0.0, proc.det_cfg.max_tracked)
+    tracked = TrackedArrays.build({}, 0.0, slots)
     proc.finish_frame(proc.device_step(raw, "RGGB", tracked), 0.0)
     bm = proc._bm_cfg
     if proc.resample_mode != want_mode:
@@ -317,7 +394,7 @@ def run_slice(torch, recorder, label: str, mode: str, want_mode: str,
         kept.clear()
     K.reset_launches()
     device_ms, frame_ms = [], []
-    tracked = TrackedArrays.build({}, 0.0, proc.det_cfg.max_tracked)
+    tracked = TrackedArrays.build({}, 0.0, slots)
     items_per_frame = None
     for f in range(FRAMES):
         now = f * 0.01
@@ -348,39 +425,18 @@ def run_slice(torch, recorder, label: str, mode: str, want_mode: str,
             device_ms.append(start.elapsed_time(end))
         recorder.on = False
 
-        d = wrapper.detection
-        found = {}
-        for team, off in ((d.robots_yellow, 0), (d.robots_blue, 16)):
-            for r in team:
-                found[r.robot_id + off] = (r.x, r.y)
-        errs = []
-        for bid, b in truth.items():
-            if bid not in found:
-                errs.append(float("inf"))
-            else:
-                errs.append(float(np.hypot(found[bid][0] - b.x, found[bid][1] - b.y)))
-        berr = min((float(np.hypot(b.x - ball.x, b.y - ball.y)) for b in d.balls),
-                   default=float("inf"))
+        found, err, berr = detection_errors(scene, wrapper)
         print(f"frame {f}: {int(blobs['count'])} candidates, "
               f"{int(blobs['valid'].sum())} blobs, bots {sorted(found)} "
-              f"max bot err {max(errs):.2f} mm, ball err {berr:.2f} mm, "
+              f"max bot err {max(err):.2f} mm, ball err {berr:.2f} mm, "
               f"device {start.elapsed_time(end):.3f} ms, frame {wall:.3f} ms")
         if f > 0:
-            if not set(truth) <= set(found) or max(errs) > 30.0:
-                fail(f"{label} frame {f}: robots {sorted(found)} vs {sorted(truth)}, "
-                     f"max error {max(errs):.2f} mm")
-            if berr > 40.0:
-                fail(f"{label} frame {f}: ball error {berr:.2f} mm")
-        tracked = tracked_from(wrapper, now + 0.01)
+            check_detections(f"{label} frame {f}", scene, wrapper)
+        tracked = tracked_from({0: wrapper}, now + 0.01, slots)
 
     launches = dict(K.LAUNCHES)
     print(f"launches in {FRAMES} frames: {launches}")
-    for name, per_frame in want_launches.items():
-        n = launches[name]
-        if per_frame is None and n <= 0:
-            fail(f"{label}: kernel {name} was not launched")
-        if per_frame is not None and n != per_frame * FRAMES:
-            fail(f"{label}: {name} launched {n} times, expected {per_frame * FRAMES}")
+    check_launches(label, launches, want_launches, FRAMES)
     if items_per_frame is None or items_per_frame > 2:
         fail(f"{label}: {items_per_frame} device->host reads in device_step, at most 2")
     print(f"device->host reads inside device_step: {items_per_frame} per frame; "
@@ -397,8 +453,158 @@ def run_slice(torch, recorder, label: str, mode: str, want_mode: str,
         "median_device_ms": med_dev, "median_frame_ms": med_frame,
         "items_per_frame": items_per_frame,
         "calls": {name: list(kept) for name, kept in recorder.calls.items()},
-        "run": (proc, raw, tracked),
+        "run": lambda: proc.finish_frame(proc.device_step(raw, "RGGB", tracked), 0.0),
     }
+
+
+def run_slice3(torch, recorder, rig, label: str, mode: str, want_mode: str,
+               want_launches: dict, frame_sets: int) -> dict:
+    """Drive the 4-camera rig as one frame-set on the card through
+    ``MultiCamApp.dispatch_frames`` -> ``finish_frames`` for ``frame_sets``
+    frame-sets with tracking fed back from the previous one, checking every
+    camera's detections, the launches and the device->host reads of the
+    dispatch; the launch counts are set to 0 just before and read just
+    after."""
+    phase(label)
+    from vision_processor_tpu_torch.app.multicam_app import MultiCamApp
+    from vision_processor_tpu_torch.app.processor import TrackedArrays, VisionConfig
+    from vision_processor_tpu_torch.io.camera import RawFrame
+    from vision_processor_tpu_torch.ops import cuda as K
+
+    geometry, scenes, raws, (width, height) = rig
+    configs = []
+    for cam_id in range(len(raws)):
+        cfg = VisionConfig()
+        cfg.cam_id = cam_id
+        cfg.max_blobs = 2000
+        cfg.resampling_factor = 1.25
+        cfg.device_finish = True
+        cfg.resample_mode = mode
+        cfg.stream_active = False
+        configs.append(cfg)
+    app = MultiCamApp.offline(configs, device=torch.device("cuda", 0))
+    for proc in app.processors:
+        proc.geometry_check(width, height, geometry, 1)
+    frames = [RawFrame(data=r, fmt="RGGB", width=width, height=height) for r in raws]
+    slots = app.processors[0].det_cfg.max_tracked
+    n_cams = app.n_cams
+
+    # one warm-up frame-set (first-use allocations, grids, markings)
+    tracked = TrackedArrays.build({}, 0.0, slots)
+    app.finish_frames(app.dispatch_frames(frames, 0.0, tracked), 0.0, frames)
+    bm = app.mc_cfg.bm
+    if bm.resample_mode != want_mode:
+        fail(f"{label}: resample mode resolved to {bm.resample_mode!r}, "
+             f"expected {want_mode!r}")
+    print(f"{n_cams} cameras, flat grid {bm.flat_shape}, planes {bm.plane_shape}, "
+          f"o={bm.grad_offset} r={bm.sat_radius} dr={bm.disc_radius}, mode "
+          f"{bm.resample_mode}, staggered {app.staggered}")
+
+    for kept in recorder.calls.values():
+        kept.clear()
+    K.reset_launches()
+    device_ms, set_ms = [], []
+    tracked = TrackedArrays.build({}, 0.0, slots)
+    items = None
+    for f in range(frame_sets):
+        now = f * 0.01
+        recorder.on = f == frame_sets - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        if f == 1:
+            out, items, d2h = audit_device_step(
+                torch, lambda: app.dispatch_frames(frames, now, tracked))
+            if d2h:
+                fail(f"{label}: tensors left the card inside the dispatch: "
+                     f"{sorted(set(d2h))}")
+        else:
+            out = app.dispatch_frames(frames, now, tracked)
+        end.record()
+        for part in out:
+            for k, v in part.items():
+                if not v.is_cuda:
+                    fail(f"{label}: dispatch output {k} is not on the card")
+        counts = out[0]["count"].tolist()
+        wrappers = app.finish_frames(out, now, frames)
+        wall = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        if f != 1:  # frame-set 1 runs under the device->host audit: not timed
+            set_ms.append(wall)
+            device_ms.append(start.elapsed_time(end))
+        recorder.on = False
+
+        worst = ball_worst = 0.0
+        n_bots = 0
+        for cam, wrapper in enumerate(wrappers):
+            found, err, berr = detection_errors(scenes[cam], wrapper)
+            n_bots += sum(e <= 30.0 for e in err)
+            worst, ball_worst = max(worst, max(err)), max(ball_worst, berr)
+            if f > 0:
+                check_detections(f"{label} frame-set {f} camera {cam}", scenes[cam], wrapper)
+        print(f"frame-set {f}: candidates {counts}, bots found {n_bots}/"
+              f"{4 * n_cams}, max bot err {worst:.2f} mm, max ball err {ball_worst:.2f} mm, "
+              f"device {start.elapsed_time(end):.3f} ms, frame-set {wall:.3f} ms")
+        tracked = tracked_from(dict(enumerate(wrappers)), now + 0.01, slots)
+
+    launches = dict(K.LAUNCHES)
+    print(f"launches in {frame_sets} frame-sets: {launches}")
+    check_launches(label, launches, want_launches, frame_sets)
+    if items is None or items > 2 * n_cams:
+        fail(f"{label}: {items} device->host reads in the dispatch, at most {2 * n_cams}")
+    print(f"device->host reads inside the dispatch: {items} per frame-set "
+          f"({n_cams} cameras); no tensor left the card")
+    med_dev = statistics.median(device_ms)
+    med_set = statistics.median(set_ms)
+    print(f"{label}: median device ms per frame-set {med_dev:.3f} (CUDA events around "
+          f"dispatch_frames); median frame-set-serial wall ms {med_set:.3f} -> "
+          f"{1e3 / med_set:.1f} frame-sets/s ({len(set_ms)} frame-sets; the audited "
+          f"frame-set 1 is left out)")
+    return {
+        "launches": launches, "device_ms": device_ms, "frame_ms": set_ms,
+        "median_device_ms": med_dev, "median_frame_ms": med_set,
+        "items_per_frame": items,
+        "calls": {name: list(kept) for name, kept in recorder.calls.items()},
+        "run": lambda: app.finish_frames(app.dispatch_frames(frames, 0.0, tracked), 0.0,
+                                         frames),
+        "fleet": (app, frames, tracked),
+    }
+
+
+def check_staggered(torch, app, frames, tracked) -> None:
+    """One frame-set through the staggered plan against the batched step,
+    from the same colour state: ids, validity and ball sets equal, floats
+    within the CPU test's tolerance (tests/test_torch_multicam.py)."""
+    phase("slice 3: staggered plan vs batched step")
+    import numpy as np
+
+    from vision_processor_tpu_torch.utils.state import to_numpy
+
+    colors = app._colors_dev
+    outs = {}
+    for staggered in (False, True):
+        app._colors_dev = colors
+        app.staggered = staggered
+        outs[staggered] = to_numpy(app.dispatch_frames(frames, 0.0, tracked))
+    app.staggered = False
+    (b_blobs, b_det, b_fin), (s_blobs, s_det, s_fin) = outs[False], outs[True]
+    try:
+        np.testing.assert_array_equal(b_blobs["count"], s_blobs["count"])
+        np.testing.assert_array_equal(b_blobs["field_pos"], s_blobs["field_pos"])
+        for key in ("bot_valid", "bot_blob_idx"):
+            np.testing.assert_array_equal(b_det[key], s_det[key])
+        np.testing.assert_allclose(b_det["bot_pos"], s_det["bot_pos"], atol=1e-3)
+        np.testing.assert_allclose(b_det["bot_score"], s_det["bot_score"], atol=1e-4)
+        for key in ("bot_valid", "bot_id", "ball_valid", "colors7"):
+            np.testing.assert_array_equal(b_fin[key], s_fin[key])
+    except AssertionError as exc:
+        fail(f"the staggered plan differs from the batched step: {exc}")
+    same = all(np.array_equal(b_det[k], s_det[k]) for k in ("bot_pos", "bot_score"))
+    print(f"staggered == batched: ids {[sorted(set(r[v].tolist())) for r, v in zip(s_fin['bot_id'], s_fin['bot_valid'])]}, "
+          f"balls {s_fin['ball_valid'].sum(axis=-1).tolist()}; positions and scores "
+          f"{'bit-equal' if same else 'within 1e-3 / 1e-4'}")
 
 
 STAGES_HEAD = (("app.processor", "blob_machine", "blob machine"),)
@@ -412,6 +618,23 @@ STAGES_SLICE2 = (
     ("ops.pipeline", "circularity_map", "  circularity (B5)"),
     ("ops.blob", "extract_blobs", "  compaction (B3) + disc stats + order"),
 )
+STAGES_SLICE3 = (
+    ("parallel.multicam", "blob_machine", "blob machine (4 cameras)"),
+    ("ops.frame", "resample_flat_grid_raw", "  resample (gather: E4 + B7)"),
+    ("ops.frame", "corner_stack", "    corner stack (E4)"),
+    ("ops.pipeline", "blob_response_map", "  blob response (B2)"),
+    ("ops.blob", "extract_blobs_scored", "  compaction + extraction (B3)"),
+    ("parallel.multicam", "detect", "detect (4 cameras, before NMS)"),
+    ("models.detector", "detection_hypotheses", "  detection hypotheses (B4 ring)"),
+    ("models.detector", "tracked_hypotheses", "  tracked hypotheses (B4 tracked)"),
+    ("parallel.multicam", "finalize_batched", "finalize (NMS x4, ids over the camera axis)"),
+    ("models.detector", "clipping_nms", "  clipping NMS (64-step loop)"),
+    ("models.detector", "_guarded_kmeans2", "id 2-means, first pass + finisher (24 rounds)"),
+    ("parallel.multicam", "finish_on_device_batched", "on-device finishing (4 cameras)"),
+    ("models.device_finish", "update_colors_device", "  color update (2 k-means)"),
+    ("app.multicam_app", "to_torch", "host->device inputs"),
+    ("app.multicam_app", "to_numpy", "device->host fetch"),
+)
 STAGES_TAIL = (
     ("app.processor", "detect", "detect"),
     ("models.detector", "detection_hypotheses", "  detection hypotheses (B4 ring)"),
@@ -424,9 +647,10 @@ STAGES_TAIL = (
 )
 
 
-def stage_times(torch, proc, raw, tracked, stages, frames: int = 5) -> dict:
+def stage_times(torch, step, stages, unit: str, reps: int = 5) -> dict:
     """Host wall ms per stage with a device fence at each stage boundary
-    (nested stages are included in their parents)."""
+    (nested stages are included in their parents), over ``reps`` calls of
+    ``step`` (one frame or frame-set each)."""
     import importlib
 
     totals = {label: 0.0 for _, _, label in stages}
@@ -447,32 +671,32 @@ def stage_times(torch, proc, raw, tracked, stages, frames: int = 5) -> dict:
         patched.append((mod, fn_name, fn))
     try:
         t0 = time.perf_counter()
-        for _ in range(frames):
-            proc.finish_frame(proc.device_step(raw, "RGGB", tracked), 0.0)
+        for _ in range(reps):
+            step()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / frames
+        wall = (time.perf_counter() - t0) * 1e3 / reps
     finally:
         for mod, fn_name, fn in patched:
             setattr(mod, fn_name, fn)
-    print(f"per-stage host ms per frame (fenced; frame {wall:.3f} ms):")
+    print(f"per-stage host ms per {unit} (fenced; {unit} {wall:.3f} ms):")
     for label, total in totals.items():
-        print(f"  {label:40s} {total / frames:8.3f}")
-    return {label: total / frames for label, total in totals.items()} | {"frame": wall}
+        print(f"  {label:48s} {total / reps:8.3f}")
+    return {label: total / reps for label, total in totals.items()} | {unit: wall}
 
 
-def profile_frames(torch, proc, raw, tracked, stages, label: str):
+def profile_frames(torch, step, stages, label: str, unit: str = "frame"):
     phase(f"profile: {label}")
     from torch.profiler import ProfilerActivity, profile
 
-    table = stage_times(torch, proc, raw, tracked, stages)
+    table = stage_times(torch, step, stages, unit)
 
     for _ in range(2):
-        proc.finish_frame(proc.device_step(raw, "RGGB", tracked), 0.0)
+        step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
-            proc.finish_frame(proc.device_step(raw, "RGGB", tracked), 0.0)
+            step()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -486,18 +710,18 @@ def profile_frames(torch, proc, raw, tracked, stages, label: str):
     n_dev = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
     kern = sorted((e for e in events if not e.key.startswith("aten::")),
                   key=lambda e: -e.self_device_time_total)[:12]
-    print(f"3 frames: wall {wall:.3f} ms, device busy {dev_us / 1e3:.3f} ms "
+    print(f"3 {unit}s: wall {wall:.3f} ms, device busy {dev_us / 1e3:.3f} ms "
           f"({100.0 * dev_us / 1e3 / wall:.1f} % busy), {n_dev} device events "
-          f"({n_dev / 3:.0f} per frame)")
+          f"({n_dev / 3:.0f} per {unit})")
     for e in kern:
-        print(f"  {e.key[:70]:70s} {e.self_device_time_total / 3e3:8.3f} ms/frame "
+        print(f"  {e.key[:70]:70s} {e.self_device_time_total / 3e3:8.3f} ms/{unit} "
               f"x{e.count // 3}")
     return {"wall_ms": wall, "device_ms": dev_us / 1e3, "device_events": n_dev,
             "stages": table}
 
 
 # ---------------------------------------------------------------------------
-# phase 5: kernels vs plain versions
+# phase 6: kernels vs plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -861,11 +1085,93 @@ def _check_b7(torch, calls):
                    bound(4 * n + 16 * rows + 64 * n, 16 * n), t_l)
 
 
-def check_kernels(torch, s1: dict, s2: dict) -> list:
+def _check_e4(torch, calls):
+    import vision_processor_tpu_torch.ops.corner_stack as CS
+
+    stack = CS.corner_stack  # the wrapper itself: the gather path's binding is recorded
+    (raw, fmt), _ = calls[-1]  # the last camera of the last frame-set
+    h, w = raw.shape[0] // 2, raw.shape[1] // 2
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def rand(shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=g)
+
+    cases = [(f"slice 3 {fmt} raw {tuple(raw.shape)}", raw, fmt),
+             ("RGGB raw (140, 1920): 70 plane rows, not a multiple of 64", rand((140, 1920)),
+              "RGGB"),
+             ("BGR (540, 960, 3)", rand((540, 960, 3)), "BGR")]
+    err = 0.0
+    for label, r, f in cases:
+        got = stack(r, f)
+        want = CS._corner_stack_plain(r, f)
+        err = max(err, float((got.int() - want.int()).abs().max()))
+        print(f"E4 corner_stack {label} -> {tuple(got.shape)}: max abs err "
+              f"{float((got.int() - want.int()).abs().max()):.3g}")
+    packed2d = CS._corner_stack_plain(raw, fmt)[..., :4].reshape(h, 4 * w).contiguous()
+    got = CS.corner_stack_packed(packed2d)
+    want = CS._corner_stack_packed_plain(packed2d)
+    err = max(err, float((got.int() - want.int()).abs().max()))
+    print(f"E4 corner_stack_packed (the experiment's contract) {tuple(packed2d.shape)} -> "
+          f"{tuple(got.shape)}: equal {torch.equal(got, want)}")
+    if err != 0.0:
+        fail("corner_stack disagrees with its plain version")
+    t_k = time_fn(torch, lambda: stack(raw, fmt))
+    t_p = time_fn(torch, lambda: CS._corner_stack_plain(raw, fmt))
+    print(f"E4 corner_stack (raw {tuple(raw.shape)} u8 -> ({h}, {w}, 16) u8): max abs err "
+          f"{err:.3g} (tol 0, bit-equal); kernel {_fmt(t_k)} vs plain {_fmt(t_p)}; no "
+          f"library call")
+    # bytes: the raw frame read once (4 per cell), the stack written once
+    return _result("corner_stack", "vision_processor_tpu_torch/csrc/corner_stack.cu",
+                   "experiments/pallas_stack.py:31", err, t_k, t_p,
+                   bound(20 * h * w, 0), None)
+
+
+# The TPU kernels still to port, at their experiments' own shapes: (name,
+# TPU kernel, shapes, bytes moved (each input read once, each output
+# written once), float32 operations of the function). Derived bounds
+# only: none of them is on a path of the port yet.
+_E1_OUT = 4 * 432 * 896  # its main(): NOUT = pad_to(432, 8) rows of pass 2
+_K2_PIXELS = 540 * 962
+UNPORTED = (
+    ("E1", "experiments/pallas_band_warp.py:42",
+     "src (4, 720, 896) f32, pos (4, 432, 896) f32, r0 (54, 7) i32 -> (4, 432, 896) f32; "
+     "5 operations per output (B1's count)",
+     4 * (4 * 720 * 896 + 2 * _E1_OUT + 54 * 7), 5 * _E1_OUT),
+    # per flat pixel: u, v 2; floor + clip 6; per plane the clipped
+    # fractions 8 and three lerps 12 (x 4); RGGB green 3; dRGB 15
+    ("E2", "experiments/k2_proto.py:43",
+     "packed (540, 960, 4) f32, px/py (540, 962) f32 -> 3 x (544, 1024) f32; "
+     "106 operations per flat pixel",
+     4 * (540 * 960 * 4 + 2 * _K2_PIXELS + 3 * 544 * 1024), 106 * _K2_PIXELS),
+    ("E3", "experiments/k2_stages.py:30", "E2's function and shapes",
+     4 * (540 * 960 * 4 + 2 * _K2_PIXELS + 3 * 544 * 1024), 106 * _K2_PIXELS),
+    ("E5", "experiments/rowtopk_blk.py:48",
+     "(540, 962) f32, m=19 -> (540, 19) f32 + i32 (the largest of its sweep)",
+     4 * 540 * 962 + 8 * 540 * 19, 540 * 962),
+    ("E5", "experiments/rowtopk_blk.py:48",
+     "(432, 770) f32, m=6 -> (432, 6) f32 + i32 (the smallest of its sweep)",
+     4 * 432 * 770 + 8 * 432 * 6, 432 * 770),
+)
+
+
+def unported_bounds() -> list:
+    print("bounds of the TPU kernels still to port (derived from the experiments' shapes, "
+          "not measured):")
+    rows = []
+    for name, repl, shapes, n_bytes, n_ops in UNPORTED:
+        ms, by = bound(n_bytes, n_ops)
+        print(f"  {name} {repl}: {shapes}: {n_bytes} bytes, {n_ops} operations -> "
+              f"{ms:.6f} ms ({by})")
+        rows.append({"name": name, "replaces": repl, "shapes": shapes, "bytes": n_bytes,
+                     "operations": n_ops, "bound_ms": ms, "bound_by": by})
+    return rows
+
+
+def check_kernels(torch, s1: dict, s2: dict, s3: dict) -> list:
     """Each kernel on the last frame's inputs of the slice whose path it
-    belongs to: B1-B4 slice 1's, B5-B7 slice 2's."""
+    belongs to: B1-B4 slice 1's, B5-B7 slice 2's, E4 slice 3's."""
     phase("kernels vs plain")
-    c1, c2 = s1["calls"], s2["calls"]
+    c1, c2, c3 = s1["calls"], s2["calls"], s3["calls"]
     return [
         _check_b1(torch, c1["band_pass"]),
         _check_b2(torch, c1["blob_response_fused"]),
@@ -874,6 +1180,7 @@ def check_kernels(torch, s1: dict, s2: dict) -> list:
         _check_b5(torch, c2["circularity_fused"]),
         _check_b6(torch, c2["combo_chain"]),
         _check_b7(torch, c2["gather_corners"]),
+        _check_e4(torch, c3["corner_stack"]),
     ]
 
 
@@ -895,28 +1202,38 @@ def main() -> None:
     card = environment(torch)
     build()
     recorder = Recorder()
-    s1 = run_slice(torch, recorder, "slice 1", "auto", "warp", SLICE1_LAUNCHES)
+    rig = bench_rig()
+    s1 = run_slice(torch, recorder, rig, "slice 1", "auto", "warp", SLICE1_LAUNCHES)
     with Env(SLICE2_ENV):
-        s2 = run_slice(torch, recorder, "slice 2", "gather", "gather", SLICE2_LAUNCHES)
-    for label, s in (("slice 1 (warp, score-first)", s1),
-                     ("slice 2 (gather, circ-first, fused combo)", s2)):
-        print(f"{label}: median device span {s['median_device_ms']:.3f} ms, "
-              f"frame-serial {1e3 / s['median_frame_ms']:.1f} fps")
+        s2 = run_slice(torch, recorder, rig, "slice 2", "gather", "gather", SLICE2_LAUNCHES)
+    s3 = run_slice3(torch, recorder, rig, "slice 3", "gather", "gather", SLICE3_LAUNCHES,
+                    FRAMES)
+    s3w = run_slice3(torch, recorder, rig, "slice 3, warp", "auto", "warp",
+                     SLICE3_WARP_LAUNCHES, WARP_FRAME_SETS)
+    check_staggered(torch, *s3["fleet"])
+    for label, s, unit in (("slice 1 (warp, score-first)", s1, "frame"),
+                           ("slice 2 (gather, circ-first, fused combo)", s2, "frame"),
+                           ("slice 3 (4 cameras, gather)", s3, "frame-set"),
+                           ("slice 3 (4 cameras, warp)", s3w, "frame-set")):
+        print(f"{label}: median device span {s['median_device_ms']:.3f} ms per {unit}, "
+              f"{unit}-serial {1e3 / s['median_frame_ms']:.1f} {unit}s/s")
     if args.profile:
-        # after both timed runs, so that no profiler session precedes them
-        s1["profile"] = profile_frames(torch, *s1["run"],
+        # after every timed run, so that no profiler session precedes them
+        s1["profile"] = profile_frames(torch, s1["run"],
                                        STAGES_HEAD + STAGES_SLICE1 + STAGES_TAIL, "slice 1")
         stages2 = STAGES_HEAD + STAGES_SLICE2 + STAGES_TAIL
         with Env(SLICE2_ENV):
-            s2["profile"] = profile_frames(torch, *s2["run"], stages2, "slice 2")
+            s2["profile"] = profile_frames(torch, s2["run"], stages2, "slice 2")
             # the question of ROADMAP B6: the same frames with the unfused chain
             with Env({"VPTPU_COMBO_KERNEL": "0"}):
                 s2["profile_combo_off"] = profile_frames(
-                    torch, *s2["run"], stages2, "slice 2, VPTPU_COMBO_KERNEL=0")
-    results = check_kernels(torch, s1, s2)
+                    torch, s2["run"], stages2, "slice 2, VPTPU_COMBO_KERNEL=0")
+        s3["profile"] = profile_frames(torch, s3["run"], STAGES_SLICE3, "slice 3",
+                                       "frame-set")
+    results = check_kernels(torch, s1, s2, s3)
 
-    path_of = {name: (s2 if name in ("gather_corners", "circularity_fused", "combo_chain")
-                      else s1) for name in WRAPPERS}
+    path_of = {name: s1 for name in WRAPPERS}
+    path_of.update(gather_corners=s2, circularity_fused=s2, combo_chain=s2, corner_stack=s3)
     record = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": r["src"], "replaces": r["repl"],
          "launches": path_of[r["name"]]["launches"][r["name"]], "max_abs_err": r["err"],
@@ -929,9 +1246,10 @@ def main() -> None:
     ]}
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "result.json").write_text(json.dumps({
-        "card": card, "kernels": record["kernels"],
-        "slices": {label: {k: v for k, v in s.items() if k not in ("calls", "run")}
-                   for label, s in (("slice 1", s1), ("slice 2", s2))},
+        "card": card, "kernels": record["kernels"], "unported_bounds": unported_bounds(),
+        "slices": {label: {k: v for k, v in s.items() if k not in ("calls", "run", "fleet")}
+                   for label, s in (("slice 1", s1), ("slice 2", s2), ("slice 3", s3),
+                                    ("slice 3, warp", s3w))},
     }, indent=1))
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))

@@ -1,6 +1,9 @@
 """vision_processor entry point, detection path (PyTorch port).
 
-Usage: python -m vision_processor_tpu_torch.app.main [config.yml] [--device cpu]
+Usage: python -m vision_processor_tpu_torch.app.main [config.yml ...] [--device cpu]
+
+One config runs ``App``; more than one run ``MultiCamApp``
+(app/multicam_app.py), every camera on one device.
 
 Counterpart of vision_processor_tpu/app/main.py (reference
 src/main.cpp:251-427): read frame -> adopt geometry -> detection path ->
@@ -23,6 +26,7 @@ import yaml
 
 from ..io.camera import open_camera
 from ..net.udp import GCSocket, VisionSocket, get_real_time
+from ..ops.cuda import KernelError
 from ..utils.config import VisionConfig
 from ..utils.log import get_logger
 from ..utils.timing import FrameStats, StageTimer
@@ -100,7 +104,7 @@ class App:
                     raise _unported("the calibration path", _ROADMAP_CALIB)
                 else:
                     raise _unported("the idle path (no geometry yet)", _ROADMAP_CALIB)
-            except NotImplementedError:
+            except (NotImplementedError, KernelError):
                 raise
             except Exception:  # keep the camera loop alive on transient
                 log.exception("frame %d failed, continuing", frame_id)
@@ -160,11 +164,17 @@ class App:
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("config", nargs="?", default="config.yml")
+    parser.add_argument("config", nargs="*", default=["config.yml"],
+                        help="one config per camera (default config.yml)")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; pass cpu to run on the CPU)")
     args = parser.parse_args(argv)
-    app = App(args.config, device=args.device)
+    if len(args.config) > 1:
+        from .multicam_app import MultiCamApp  # it imports this module
+
+        app = MultiCamApp(args.config, device=args.device)
+    else:
+        app = App(args.config[0], device=args.device)
     signal.signal(signal.SIGTERM, app.stop)
     signal.signal(signal.SIGINT, app.stop)
     app.run()

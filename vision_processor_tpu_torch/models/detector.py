@@ -707,18 +707,21 @@ def _guarded_kmeans2(contrast, vals, c1_init, c2_init, iters: int = 24):
     """Vectorized guarded 2-means over the 4 side-blob colors of each bot
     (reference src/blobs/kmeans.cpp:20-90; host kmeans2 semantics with
     integer floor division). contrast (B, 3), vals (B, 4, 3), c1/c2 (3,)
-    int32. Runs ``iters`` rounds; a finished row is never updated again."""
+    or one init per row (B, 3), int32. Runs ``iters`` rounds; a finished
+    row is never updated again."""
     b = vals.shape[0]
     dev = vals.device
     rows = torch.arange(b, device=dev)
+    c1_init = torch.broadcast_to(c1_init, (b, 3))
+    c2_init = torch.broadcast_to(c2_init, (b, 3))
     out_group = _sqnorm_i(vals - contrast[:, None, :]).amin(dim=-1)  # (B,)
     d = vals[:, :, None, :] - vals[:, None, :, :]
     pair = _sqnorm_i(d) + torch.eye(4, dtype=vals.dtype, device=dev) * (2**30)
     in_group = pair.amin(dim=-1).amin(dim=-1)
     may_split = in_group <= out_group
 
-    c1 = vals[rows, torch.argmin(_sqnorm_i(vals - c1_init), dim=-1)]
-    c2 = vals[rows, torch.argmin(_sqnorm_i(vals - c2_init), dim=-1)]
+    c1 = vals[rows, torch.argmin(_sqnorm_i(vals - c1_init[:, None]), dim=-1)]
+    c2 = vals[rows, torch.argmin(_sqnorm_i(vals - c2_init[:, None]), dim=-1)]
     degenerate = (c1 == c2).all(dim=-1)
 
     ok = may_split & ~degenerate
@@ -753,27 +756,39 @@ def estimate_bot_ids(det, blob_color, colors):
     """In-graph bot id estimate (host_detect.calc_bot_id semantics,
     reference src/blobs/hypothesis.cpp:208-227): guarded per-bot 2-means of
     the side colors, green/pink bits, team by center color. Tracked bots
-    keep their known id."""
+    keep their known id.
+
+    One camera: ``bot_blob_idx`` (B, 5), blob_color (K, 3), colors (7, 3).
+    With a leading camera axis on all three (and on ``bot_tracked_id``) it
+    is the JAX package's ``jax.vmap(estimate_bot_ids)``: the camera axis
+    folds into the bot axis, each row's 2-means seeded from its own
+    camera's table, which is exact since the 2-means is row-wise."""
     tab = _tables(8, blob_color.device)
-    yellow, blue, green, pink = colors[2], colors[3], colors[4], colors[5]
-    idx = det["bot_blob_idx"]  # (B, 5)
-    safe = torch.clamp_min(idx, 0).long()
-    c = blob_color[safe]  # (B, 5, 3)
+    idx = det["bot_blob_idx"]
+    tid = det["bot_tracked_id"]
+    if idx.dim() == 2:
+        return estimate_bot_ids(
+            {"bot_blob_idx": idx[None], "bot_tracked_id": tid[None]},
+            blob_color[None], colors[None])[0]
+    n, b = idx.shape[:2]
+    yellow, blue, green, pink = colors[:, 2], colors[:, 3], colors[:, 4], colors[:, 5]
+    safe = torch.clamp_min(idx, 0).long()  # (N, B, 5)
+    c = torch.gather(blob_color, 1, safe.reshape(n, b * 5, 1).expand(-1, -1, 3))
+    c = c.reshape(n, b, 5, 3)
 
     # the host path truncates (np .astype), not rounds
-    ci = c.to(torch.int32)
-    g0 = green.to(torch.int32)
-    p0 = pink.to(torch.int32)
+    ci = c.to(torch.int32).reshape(n * b, 5, 3)
+    g0 = green.to(torch.int32).repeat_interleave(b, dim=0)
+    p0 = pink.to(torch.int32).repeat_interleave(b, dim=0)
     g_ref, p_ref = _guarded_kmeans2(ci[:, 0], ci[:, 1:5], g0, p0)
 
     d_green = _sqnorm_i(ci[:, 1:5] - g_ref[:, None, :])
     d_pink = _sqnorm_i(ci[:, 1:5] - p_ref[:, None, :])
     bits = (d_green < d_pink).to(torch.int64)
     mask = bits[:, 0] * 8 + bits[:, 1] * 4 + bits[:, 2] * 2 + bits[:, 3]
-    base_id = tab["pattern_lut"][mask]
-    d_blue = _sqnorm(c[:, 0] - blue)
-    d_yellow = _sqnorm(c[:, 0] - yellow)
+    base_id = tab["pattern_lut"][mask].reshape(n, b)
+    d_blue = _sqnorm(c[:, :, 0] - blue[:, None])
+    d_yellow = _sqnorm(c[:, :, 0] - yellow[:, None])
     team16 = torch.where(d_blue < d_yellow, 16, 0).to(torch.int32)
     est = base_id + team16
-    tid = det["bot_tracked_id"]
     return torch.where(tid >= 0, tid, est).to(torch.int32)

@@ -1,12 +1,13 @@
 """On-device frame finishing: color update, id recalculation, ball scoring,
-filters and emission projections (PyTorch port, single camera).
+filters and emission projections (PyTorch port).
 
 Counterpart of vision_processor_tpu/models/device_finish.py (reference
 src/main.cpp:320-371, src/blobs/colorupdate.cpp:21-120,
 src/blobs/hypothesis.cpp:83-94,208-270). The early-exit k-means
 ``while_loop`` runs its ``iters`` rounds; a finished group is never
 updated again, so the result equals the early-exit one. The camera-batched
-finisher waits for the multi-camera port.
+finisher (the JAX package's vmap) runs the per-camera finisher camera by
+camera, so its results are the per-camera ones exactly.
 """
 from __future__ import annotations
 
@@ -338,3 +339,52 @@ def finish_on_device(blobs, det, colors7, colors7_ref, packed_cam, marks, params
         "ball_world": ball_world,
         "ball_pixel": ball_img,
     }
+
+
+# ---------------------------------------------------------------------------
+# camera-batched finisher
+# ---------------------------------------------------------------------------
+
+_FIN_PARAM_KEYS = (
+    "max_bot_height",
+    "ball_radius",
+    "reference_force",
+    "history_force",
+    "min_confidence",
+    "min_score",
+    "min_cam_edge_distance",
+    "bot_heights_yb",
+)
+
+
+def stack_finish_params(params: dict, n_cams: int) -> dict:
+    """The finisher's params with a leading camera axis: shared scalars
+    replicate; per-camera (N,) tunables pass through."""
+    out = {}
+    for k in _FIN_PARAM_KEYS:
+        v = torch.as_tensor(params[k], dtype=torch.float32)
+        if k == "bot_heights_yb":
+            out[k] = torch.broadcast_to(v, (n_cams, 2))
+        elif v.dim() == 0:
+            out[k] = torch.broadcast_to(v, (n_cams,))
+        else:
+            out[k] = v
+    return out
+
+
+def _cam(tree: dict, c: int) -> dict:
+    return {k: v[c] for k, v in tree.items()}
+
+
+def finish_on_device_batched(blobs, det, colors7, colors7_refs, packed_cams, marks,
+                             params):
+    """``finish_on_device`` over a leading camera axis on every input
+    (``params`` from ``stack_finish_params``), one camera at a time; the
+    outputs are stacked. The finisher reads nothing back to the host, so
+    the loop only enqueues."""
+    outs = []
+    for c in range(packed_cams.shape[0]):
+        outs.append(finish_on_device(
+            _cam(blobs, c), _cam(det, c), colors7[c], colors7_refs[c], packed_cams[c],
+            _cam(marks, c), _cam(params, c)))
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

@@ -8,10 +8,12 @@ library into ``build/vptpu_torch_kernels/`` (a directory that
 ``.gitignore`` lists), keyed by a hash of the sources.
 
 Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` raises on anything but 0. Each
-wrapper (ops/warp.py, ops/blob_fused.py, ops/topk.py, ops/gather_corners.py,
-ops/combo_fused.py) counts its own launches in :data:`LAUNCHES`, so a
-caller can show that a run went through the kernels.
+``cudaGetLastError()``; :func:`check` raises :class:`KernelError` on
+anything but 0, as the build does when a kernel cannot be compiled or
+loaded. Each wrapper (ops/warp.py, ops/blob_fused.py, ops/topk.py,
+ops/gather_corners.py, ops/combo_fused.py, ops/corner_stack.py) counts its
+own launches in :data:`LAUNCHES`, so a caller can show that a run went
+through the kernels.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ LAUNCHES: dict[str, int] = {
     "gather_corners": 0,
     "circularity_fused": 0,
     "combo_chain": 0,
+    "corner_stack": 0,
 }
 
 _lock = threading.Lock()
@@ -72,7 +75,15 @@ _SIGNATURES = {
     # maps, A, C, anchor_pos, ring_count, anchor_valid, combo_max, pattern,
     # outf, outi, stream
     "vp_combo_chain": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    # src, mode, H, W, out, stream
+    "vp_corner_stack": [_P, _I, _I, _I, _P, _P],
 }
+
+
+class KernelError(RuntimeError):
+    """A kernel failed to build, load or launch. The apps' per-frame
+    error handling lets it through: the detection path cannot run without
+    its kernels."""
 
 
 def reset_launches() -> None:
@@ -92,7 +103,7 @@ def _nvcc() -> str:
     cand = Path(home) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise KernelError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def build() -> Path:
@@ -127,11 +138,11 @@ def build() -> Path:
             if proc.returncode != 0:
                 failed.append(f"{s.name} ({proc.returncode})")
         if failed:
-            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n" + "\n".join(logs))
+            raise KernelError(f"nvcc failed: {', '.join(failed)}\n" + "\n".join(logs))
         link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
                               capture_output=True, text=True)
         if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+            raise KernelError(f"nvcc link failed ({link.returncode}):\n"
                                f"{link.stdout}\n{link.stderr}")
     finally:
         for o in objs:
@@ -149,7 +160,10 @@ def lib():
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
+            try:
+                handle = ctypes.CDLL(str(build()))
+            except OSError as exc:
+                raise KernelError(f"cannot load the kernel library: {exc}") from exc
             for name, args in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = args
@@ -160,7 +174,7 @@ def lib():
 
 def check(rc: int, name: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed: cudaError {rc}")
+        raise KernelError(f"CUDA kernel {name} failed: cudaError {rc}")
 
 
 def stream(t: torch.Tensor) -> int:

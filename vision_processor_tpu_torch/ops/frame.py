@@ -3,16 +3,19 @@
 Counterpart of vision_processor_tpu/ops/frame.py (reference
 kernel/raw2quad.cl:21-39, kernel/resampling.cl:52-105). The gather path
 (``resample_grid`` + ``resample_flat_grid_raw``) is the resample for
-cameras that ``ops.warp.warp_fits`` rejects; its one gather of corner-stack
-rows is ``ops.gather_corners.gather_corners`` (kernel B7 on the card, the
-function of the JAX package's ``gather_corners_pallas``). The corner stack
-itself stays plain torch.
+cameras that ``ops.warp.warp_fits`` rejects. It builds the corner stack
+straight from the raw frame with ``ops.corner_stack.corner_stack`` (kernel
+E4 on the card, the function of ``experiments/pallas_stack.py`` and of the
+JAX package's ``corner_stack_u32``), then gathers its rows with
+``ops.gather_corners.gather_corners`` (kernel B7 on the card, the function
+of the JAX package's ``gather_corners_pallas``).
 """
 from __future__ import annotations
 
 import torch
 
 from ..models.camera import field2image_packed
+from .corner_stack import corner_stack
 from .gather_corners import gather_corners
 
 # Supported raw formats
@@ -108,16 +111,6 @@ def resample_grid(packed_cam, max_bot_height, field_scale, field_offset,
         "ub": u - x0.to(torch.float32),
         "vb": v - y0.to(torch.float32),
     }
-
-
-def corner_stack(raw: torch.Tensor, fmt: str) -> torch.Tensor:
-    """(H, W, 16) u8: each cell's 4 planes plus its right, down and
-    down-right neighbours (clamp to edge), straight from the raw frame."""
-    p = raw2planes_packed(raw, fmt, dtype=torch.uint8)
-    right = torch.cat([p[:, 1:], p[:, -1:]], dim=1)
-    down = torch.cat([p[1:], p[-1:]], dim=0)
-    down_right = torch.cat([down[:, 1:], down[:, -1:]], dim=1)
-    return torch.cat([p, right, down, down_right], dim=-1)
 
 
 def resample_flat_grid_raw(raw: torch.Tensor, grid: dict, fmt: str) -> torch.Tensor:

@@ -46,17 +46,23 @@ class BlobMachineConfig:
             return (self.raw_shape[0], self.raw_shape[1])
         return (self.raw_shape[0] // 2, self.raw_shape[1] // 2)
 
-    def make_resample_grid(self, packed_cam: torch.Tensor, max_bot_height) -> dict:
+    def make_resample_grid(self, packed_cam: torch.Tensor, max_bot_height,
+                           field_scale=None, field_offset=None) -> dict:
         """Frame-invariant sampling geometry (tensors on packed_cam's
-        device), recomputed once per calibration / bot-height change."""
+        device), recomputed once per calibration / bot-height change.
+        ``field_scale`` / ``field_offset`` default to the config's; a
+        camera batch passes each camera's own."""
+        if field_scale is None:
+            field_scale = self.field_scale
+        if field_offset is None:
+            field_offset = self.field_offset
         if self.resample_mode == "warp":
             from . import warp as W
 
-            return W.warp_grid(packed_cam, max_bot_height, self.field_scale,
-                               self.field_offset, self.flat_shape, self.plane_shape,
-                               self.fmt)
-        return F.resample_grid(packed_cam, max_bot_height, self.field_scale,
-                               self.field_offset, self.flat_shape, self.plane_shape)
+            return W.warp_grid(packed_cam, max_bot_height, field_scale, field_offset,
+                               self.flat_shape, self.plane_shape, self.fmt)
+        return F.resample_grid(packed_cam, max_bot_height, field_scale, field_offset,
+                               self.flat_shape, self.plane_shape)
 
     @classmethod
     def from_perspective(cls, perspective, fmt: str, raw_shape: tuple[int, ...],
@@ -122,11 +128,17 @@ def circularity_map(cfg: BlobMachineConfig, flat: torch.Tensor) -> torch.Tensor:
 
 
 def blob_machine(cfg: BlobMachineConfig, raw: torch.Tensor, circ_threshold,
-                 rs_grid: dict) -> dict:
+                 rs_grid: dict, field_scale=None, field_offset=None) -> dict:
     """Full frame -> blobs. Returns the blob slot dict; positions in field
     mm are added as ``field_pos``. ``rs_grid`` is the precomputed sampling
     geometry (``cfg.make_resample_grid``): a warp grid ("pos1" key) or a
-    gather grid."""
+    gather grid. ``field_scale`` / ``field_offset`` default to the config's
+    values; a camera batch passes each camera's own, as the JAX package's
+    blob_machine takes them."""
+    if field_scale is None:
+        field_scale = cfg.field_scale
+    if field_offset is None:
+        field_offset = cfg.field_offset
     if "pos1" in rs_grid:
         from . import warp as W
 
@@ -142,6 +154,6 @@ def blob_machine(cfg: BlobMachineConfig, raw: torch.Tensor, circ_threshold,
     else:
         blobs = B.extract_blobs(flat, circularity_map(cfg, flat), circ_threshold,
                                 0.0, radius=cfg.disc_radius, max_blobs=cfg.max_blobs)
-    offset = torch.as_tensor(cfg.field_offset, dtype=torch.float32, device=flat.device)
-    blobs["field_pos"] = blobs["pos"] * cfg.field_scale + offset
+    offset = torch.as_tensor(field_offset, dtype=torch.float32, device=flat.device)
+    blobs["field_pos"] = blobs["pos"] * field_scale + offset
     return blobs
