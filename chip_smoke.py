@@ -41,14 +41,30 @@ Phases (any failure exits non-zero and prints no result line):
    E4 and B7 never), and one frame-set through the staggered plan
    (``percam_core_step`` x 4 + ``staggered_tail_step``), which must equal
    the batched step;
-6. kernels vs their plain PyTorch versions on the card, on the slices' own
-   intermediates plus tie, exhausted-row, invalid-anchor, partial-block
-   and BGR cases, with kernel, plain and library-call times and each
-   kernel's bound.
+6. slice 4: the same rig through ``parallel.multicam.batched_step`` with
+   ``rs_grids=None``, the in-line projection resample (the camera
+   projection per flat pixel, then kernel E2/E3), on-device finishing and
+   the summaries fed back, for 10 frame-sets: 16 bots within 30 mm and
+   each ball within 40 mm on every frame-set after the first; per
+   frame-set E2/E3 4, B2 and B3 4, B4 8, and E4, B7, B1 never; at most 2
+   device->host reads per camera in the step; the blobs equal to the
+   gather-grid step's on the same frames (validity equal, field positions
+   within 0.05 mm). Then 3 frame-sets at resampling factor 1.0 (flat grid
+   (540, 962)), and camera 0 for one frame through ``BlobMachine`` and one
+   through ``full_step(rs_grid=None)``;
+7. E1 and E5 at their own contracts (no production path runs them): the
+   banded warp pass with window starts at its experiment's shapes, and the
+   row top-k at rows-per-block 8, 32 and 64 on its experiment's shapes;
+8. kernels vs their plain PyTorch versions on the card, on the slices' own
+   intermediates plus tie, exhausted-row, invalid-anchor, partial-block,
+   edge, GRBG, BGR and packed-plane cases, with kernel, plain and
+   library-call times and each kernel's bound; E1 and E5 beside B1 and B3
+   at the same shapes.
 
-Each slice is driven with the launch counts set to 0 just before it and
-read just after. The last line is ``{"ok": true, "device": {...}}``; the
-line before it the per-kernel JSON record.
+Each slice, and the contract run of E1 and E5, is driven with the launch
+counts set to 0 just before it and read just after. The last line is
+``{"ok": true, "device": {...}}``; the line before it the per-kernel JSON
+record.
 """
 from __future__ import annotations
 
@@ -159,22 +175,30 @@ WRAPPERS = {
     "circularity_fused": ("ops.blob_fused", "circularity_fused"),
     "combo_chain": ("ops.combo_fused", "combo_chain"),
     "corner_stack": ("ops.frame", "corner_stack"),
+    "resample_packed": ("ops.pipeline", "resample_packed"),
+    "band_warp": ("ops.band_warp", "band_warp"),
+    "row_topk_blk": ("ops.topk", "row_topk_blk"),
 }
 
 # launches per frame on each slice's path; None: at least one in the run
 SLICE1_LAUNCHES = {"band_pass": 2, "blob_response_fused": None, "row_topk": None,
-                   "query_select_topk": None, "corner_stack": 0}
+                   "query_select_topk": None, "corner_stack": 0, "resample_packed": 0}
 SLICE2_LAUNCHES = {"gather_corners": 1, "circularity_fused": 1, "combo_chain": 1,
                    "row_topk": 1, "query_select_topk": 2, "band_pass": 0,
-                   "blob_response_fused": 0, "corner_stack": 1}
+                   "blob_response_fused": 0, "corner_stack": 1, "resample_packed": 0}
 SLICE2_ENV = {"VPTPU_SCOREFIRST": "0", "VPTPU_COMBO_KERNEL": "1"}
 # launches per frame-set of the 4-camera rig
 SLICE3_LAUNCHES = {"corner_stack": 4, "gather_corners": 4, "blob_response_fused": 4,
                    "row_topk": 4, "query_select_topk": 8, "band_pass": 0,
-                   "circularity_fused": 0, "combo_chain": 0}
+                   "circularity_fused": 0, "combo_chain": 0, "resample_packed": 0}
 SLICE3_WARP_LAUNCHES = {"band_pass": 8, "corner_stack": 0, "gather_corners": 0,
                         "blob_response_fused": 4, "query_select_topk": 8,
-                        "circularity_fused": 0, "combo_chain": 0}
+                        "circularity_fused": 0, "combo_chain": 0, "resample_packed": 0}
+SLICE4_LAUNCHES = {"resample_packed": 4, "blob_response_fused": 4, "row_topk": 4,
+                   "query_select_topk": 8, "corner_stack": 0, "gather_corners": 0,
+                   "band_pass": 0, "circularity_fused": 0, "combo_chain": 0,
+                   "band_warp": 0, "row_topk_blk": 0}
+SLICE4_FACTOR1_FRAME_SETS = 3
 
 
 def bench_rig(n_cams: int = N_CAMS):
@@ -223,6 +247,33 @@ def bench_rig(n_cams: int = N_CAMS):
         scenes.append(scene)
         raws.append(render_raw(model, geometry.field, scene, "RGGB"))
     return geometry, scenes, raws, (width, height)
+
+
+def vision_config(mode: str, factor: float = 1.25, cam_id: int = 0):
+    """A rig camera's configuration: max_blobs 2000, on-device finishing,
+    the given resample mode and resampling factor, no debug stream."""
+    from vision_processor_tpu_torch.utils.config import VisionConfig
+
+    cfg = VisionConfig()
+    cfg.cam_id = cam_id
+    cfg.max_blobs = 2000
+    cfg.resampling_factor = factor
+    cfg.device_finish = True
+    cfg.resample_mode = mode
+    cfg.stream_active = False
+    return cfg
+
+
+def _offline_fleet(torch, rig, mode: str, factor: float):
+    """The rig as an offline MultiCamApp on the card, geometry adopted."""
+    from vision_processor_tpu_torch.app.multicam_app import MultiCamApp
+
+    geometry, _, raws, (width, height) = rig
+    configs = [vision_config(mode, factor, cam_id) for cam_id in range(len(raws))]
+    app = MultiCamApp.offline(configs, device=torch.device("cuda", 0))
+    for proc in app.processors:
+        proc.geometry_check(width, height, geometry, 1)
+    return app
 
 
 def detection_errors(scene, wrapper):
@@ -355,184 +406,49 @@ def check_launches(label: str, launches: dict, want: dict, per: int) -> None:
             fail(f"{label}: {name} launched {n} times, expected {n_per * per}")
 
 
-def run_slice(torch, recorder, rig, label: str, mode: str, want_mode: str,
-              want_launches: dict) -> dict:
-    """Drive the bench rig's camera 0 through the processor for FRAMES
-    frames with tracking fed back, checking detections, launches and
-    device->host reads; the launch counts are set to 0 just before and read
-    just after."""
-    phase(label)
-    from vision_processor_tpu_torch.app.processor import (
-        Processor, TrackedArrays, VisionConfig,
-    )
+def drive(torch, recorder, label: str, scenes, n_frames: int, want_launches: dict,
+          dispatch, finish, what: str, unit: str) -> dict:
+    """The measured run of a slice: ``n_frames`` frames or frame-sets, each
+    ``dispatch(now)`` (the device outputs, a tuple of tensor dicts, timed
+    with CUDA events as ``what``) then ``finish(out, now)`` (one detection
+    wrapper per camera; it feeds the tracked prior back). Every camera's
+    detections are checked after the first; the launch counts are set to 0
+    just before and read just after; the second dispatch runs under the
+    device->host audit (at most 2 reads per camera, no tensor leaving the
+    card) and is not timed. The last one's kernel inputs are recorded."""
     from vision_processor_tpu_torch.ops import cuda as K
 
-    geometry, scenes, raws, (width, height) = rig
-    scene, raw = scenes[0], raws[0]
-    cfg = VisionConfig()
-    cfg.max_blobs = 2000
-    cfg.resampling_factor = 1.25
-    cfg.device_finish = True
-    cfg.resample_mode = mode
-    cfg.stream_active = False
-    dev = torch.device("cuda", 0)
-    proc = Processor(cfg, max_tracked=32, device=dev)
-    proc.geometry_check(width, height, geometry, 1)
-    slots = proc.det_cfg.max_tracked
-
-    # one warm-up frame (first-use allocations, kernel build already done)
-    tracked = TrackedArrays.build({}, 0.0, slots)
-    proc.finish_frame(proc.device_step(raw, "RGGB", tracked), 0.0)
-    bm = proc._bm_cfg
-    if proc.resample_mode != want_mode:
-        fail(f"{label}: resample mode resolved to {proc.resample_mode!r}, "
-             f"expected {want_mode!r}")
-    print(f"flat grid {bm.flat_shape}, planes {bm.plane_shape}, o={bm.grad_offset} "
-          f"r={bm.sat_radius} dr={bm.disc_radius}, mode {proc.resample_mode}")
-
+    n_cams = len(scenes)
     for kept in recorder.calls.values():
         kept.clear()
     K.reset_launches()
     device_ms, frame_ms = [], []
-    tracked = TrackedArrays.build({}, 0.0, slots)
-    items_per_frame = None
-    for f in range(FRAMES):
-        now = f * 0.01
-        recorder.on = f == FRAMES - 1
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        if f == 1:
-            out, items_per_frame, d2h = audit_device_step(
-                torch, lambda: proc.device_step(raw, "RGGB", tracked))
-            if d2h:
-                fail(f"{label}: tensors left the card inside device_step: "
-                     f"{sorted(set(d2h))}")
-        else:
-            out = proc.device_step(raw, "RGGB", tracked)
-        end.record()
-        for part in out:
-            for k, v in part.items():
-                if not v.is_cuda:
-                    fail(f"{label}: device_step output {k} is not on the card")
-        wrapper, blobs, det = proc.finish_frame(out, now)
-        wall = (time.perf_counter() - t0) * 1e3
-        end.synchronize()
-        if f != 1:  # frame 1 runs under the device->host audit: not timed
-            frame_ms.append(wall)
-            device_ms.append(start.elapsed_time(end))
-        recorder.on = False
-
-        found, err, berr = detection_errors(scene, wrapper)
-        print(f"frame {f}: {int(blobs['count'])} candidates, "
-              f"{int(blobs['valid'].sum())} blobs, bots {sorted(found)} "
-              f"max bot err {max(err):.2f} mm, ball err {berr:.2f} mm, "
-              f"device {start.elapsed_time(end):.3f} ms, frame {wall:.3f} ms")
-        if f > 0:
-            check_detections(f"{label} frame {f}", scene, wrapper)
-        tracked = tracked_from({0: wrapper}, now + 0.01, slots)
-
-    launches = dict(K.LAUNCHES)
-    print(f"launches in {FRAMES} frames: {launches}")
-    check_launches(label, launches, want_launches, FRAMES)
-    if items_per_frame is None or items_per_frame > 2:
-        fail(f"{label}: {items_per_frame} device->host reads in device_step, at most 2")
-    print(f"device->host reads inside device_step: {items_per_frame} per frame; "
-          f"no tensor left the card")
-    med_dev = statistics.median(device_ms)
-    med_frame = statistics.median(frame_ms)
-    print(f"{label}: median device ms per frame {med_dev:.3f} (CUDA events around "
-          f"device_step); median frame-serial wall ms {med_frame:.3f} -> "
-          f"{1e3 / med_frame:.1f} fps ({len(frame_ms)} frames; the audited frame 1 is "
-          f"left out)")
-
-    return {
-        "launches": launches, "device_ms": device_ms, "frame_ms": frame_ms,
-        "median_device_ms": med_dev, "median_frame_ms": med_frame,
-        "items_per_frame": items_per_frame,
-        "calls": {name: list(kept) for name, kept in recorder.calls.items()},
-        "run": lambda: proc.finish_frame(proc.device_step(raw, "RGGB", tracked), 0.0),
-    }
-
-
-def run_slice3(torch, recorder, rig, label: str, mode: str, want_mode: str,
-               want_launches: dict, frame_sets: int) -> dict:
-    """Drive the 4-camera rig as one frame-set on the card through
-    ``MultiCamApp.dispatch_frames`` -> ``finish_frames`` for ``frame_sets``
-    frame-sets with tracking fed back from the previous one, checking every
-    camera's detections, the launches and the device->host reads of the
-    dispatch; the launch counts are set to 0 just before and read just
-    after."""
-    phase(label)
-    from vision_processor_tpu_torch.app.multicam_app import MultiCamApp
-    from vision_processor_tpu_torch.app.processor import TrackedArrays, VisionConfig
-    from vision_processor_tpu_torch.io.camera import RawFrame
-    from vision_processor_tpu_torch.ops import cuda as K
-
-    geometry, scenes, raws, (width, height) = rig
-    configs = []
-    for cam_id in range(len(raws)):
-        cfg = VisionConfig()
-        cfg.cam_id = cam_id
-        cfg.max_blobs = 2000
-        cfg.resampling_factor = 1.25
-        cfg.device_finish = True
-        cfg.resample_mode = mode
-        cfg.stream_active = False
-        configs.append(cfg)
-    app = MultiCamApp.offline(configs, device=torch.device("cuda", 0))
-    for proc in app.processors:
-        proc.geometry_check(width, height, geometry, 1)
-    frames = [RawFrame(data=r, fmt="RGGB", width=width, height=height) for r in raws]
-    slots = app.processors[0].det_cfg.max_tracked
-    n_cams = app.n_cams
-
-    # one warm-up frame-set (first-use allocations, grids, markings)
-    tracked = TrackedArrays.build({}, 0.0, slots)
-    app.finish_frames(app.dispatch_frames(frames, 0.0, tracked), 0.0, frames)
-    bm = app.mc_cfg.bm
-    if bm.resample_mode != want_mode:
-        fail(f"{label}: resample mode resolved to {bm.resample_mode!r}, "
-             f"expected {want_mode!r}")
-    print(f"{n_cams} cameras, flat grid {bm.flat_shape}, planes {bm.plane_shape}, "
-          f"o={bm.grad_offset} r={bm.sat_radius} dr={bm.disc_radius}, mode "
-          f"{bm.resample_mode}, staggered {app.staggered}")
-
-    for kept in recorder.calls.values():
-        kept.clear()
-    K.reset_launches()
-    device_ms, set_ms = [], []
-    tracked = TrackedArrays.build({}, 0.0, slots)
     items = None
-    for f in range(frame_sets):
+    for f in range(n_frames):
         now = f * 0.01
-        recorder.on = f == frame_sets - 1
+        recorder.on = f == n_frames - 1
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         if f == 1:
-            out, items, d2h = audit_device_step(
-                torch, lambda: app.dispatch_frames(frames, now, tracked))
+            out, items, d2h = audit_device_step(torch, lambda: dispatch(now))
             if d2h:
-                fail(f"{label}: tensors left the card inside the dispatch: "
-                     f"{sorted(set(d2h))}")
+                fail(f"{label}: tensors left the card inside {what}: {sorted(set(d2h))}")
         else:
-            out = app.dispatch_frames(frames, now, tracked)
+            out = dispatch(now)
         end.record()
         for part in out:
             for k, v in part.items():
                 if not v.is_cuda:
-                    fail(f"{label}: dispatch output {k} is not on the card")
-        counts = out[0]["count"].tolist()
-        wrappers = app.finish_frames(out, now, frames)
+                    fail(f"{label}: {what} output {k} is not on the card")
+        counts = out[0]["count"].reshape(-1).tolist()
+        wrappers = finish(out, now)
         wall = (time.perf_counter() - t0) * 1e3
         end.synchronize()
-        if f != 1:  # frame-set 1 runs under the device->host audit: not timed
-            set_ms.append(wall)
+        if f != 1:  # the audited one is not timed
+            frame_ms.append(wall)
             device_ms.append(start.elapsed_time(end))
         recorder.on = False
 
@@ -543,34 +459,108 @@ def run_slice3(torch, recorder, rig, label: str, mode: str, want_mode: str,
             n_bots += sum(e <= 30.0 for e in err)
             worst, ball_worst = max(worst, max(err)), max(ball_worst, berr)
             if f > 0:
-                check_detections(f"{label} frame-set {f} camera {cam}", scenes[cam], wrapper)
-        print(f"frame-set {f}: candidates {counts}, bots found {n_bots}/"
-              f"{4 * n_cams}, max bot err {worst:.2f} mm, max ball err {ball_worst:.2f} mm, "
-              f"device {start.elapsed_time(end):.3f} ms, frame-set {wall:.3f} ms")
-        tracked = tracked_from(dict(enumerate(wrappers)), now + 0.01, slots)
+                check_detections(f"{label} {unit} {f} camera {cam}", scenes[cam], wrapper)
+        print(f"{unit} {f}: candidates {counts}, bots found {n_bots}/{4 * n_cams}, max bot "
+              f"err {worst:.2f} mm, max ball err {ball_worst:.2f} mm, device "
+              f"{start.elapsed_time(end):.3f} ms, {unit} {wall:.3f} ms")
 
     launches = dict(K.LAUNCHES)
-    print(f"launches in {frame_sets} frame-sets: {launches}")
-    check_launches(label, launches, want_launches, frame_sets)
+    print(f"launches in {n_frames} {unit}s: {launches}")
+    check_launches(label, launches, want_launches, n_frames)
     if items is None or items > 2 * n_cams:
-        fail(f"{label}: {items} device->host reads in the dispatch, at most {2 * n_cams}")
-    print(f"device->host reads inside the dispatch: {items} per frame-set "
-          f"({n_cams} cameras); no tensor left the card")
+        fail(f"{label}: {items} device->host reads in {what}, at most {2 * n_cams}")
+    print(f"device->host reads inside {what}: {items} per {unit} ({n_cams} "
+          f"camera{'s' if n_cams > 1 else ''}); no tensor left the card")
     med_dev = statistics.median(device_ms)
-    med_set = statistics.median(set_ms)
-    print(f"{label}: median device ms per frame-set {med_dev:.3f} (CUDA events around "
-          f"dispatch_frames); median frame-set-serial wall ms {med_set:.3f} -> "
-          f"{1e3 / med_set:.1f} frame-sets/s ({len(set_ms)} frame-sets; the audited "
-          f"frame-set 1 is left out)")
+    med_frame = statistics.median(frame_ms)
+    print(f"{label}: median device ms per {unit} {med_dev:.3f} (CUDA events around "
+          f"{what}); median {unit}-serial wall ms {med_frame:.3f} -> "
+          f"{1e3 / med_frame:.1f} {unit}s/s ({len(frame_ms)} {unit}s; the audited {unit} "
+          f"1 is left out)")
     return {
-        "launches": launches, "device_ms": device_ms, "frame_ms": set_ms,
-        "median_device_ms": med_dev, "median_frame_ms": med_set,
+        "launches": launches, "device_ms": device_ms, "frame_ms": frame_ms,
+        "median_device_ms": med_dev, "median_frame_ms": med_frame,
         "items_per_frame": items,
         "calls": {name: list(kept) for name, kept in recorder.calls.items()},
-        "run": lambda: app.finish_frames(app.dispatch_frames(frames, 0.0, tracked), 0.0,
-                                         frames),
-        "fleet": (app, frames, tracked),
     }
+
+
+def run_slice(torch, recorder, rig, label: str, mode: str, want_mode: str,
+              want_launches: dict) -> dict:
+    """Drive the bench rig's camera 0 through ``Processor.device_step`` ->
+    ``finish_frame`` for FRAMES frames with tracking fed back."""
+    phase(label)
+    from vision_processor_tpu_torch.app.processor import Processor, TrackedArrays
+
+    geometry, scenes, raws, (width, height) = rig
+    raw = raws[0]
+    dev = torch.device("cuda", 0)
+    proc = Processor(vision_config(mode), max_tracked=32, device=dev)
+    proc.geometry_check(width, height, geometry, 1)
+    slots = proc.det_cfg.max_tracked
+
+    # one warm-up frame (first-use allocations, kernel build already done)
+    state = {"tracked": TrackedArrays.build({}, 0.0, slots)}
+    proc.finish_frame(proc.device_step(raw, "RGGB", state["tracked"]), 0.0)
+    bm = proc._bm_cfg
+    if proc.resample_mode != want_mode:
+        fail(f"{label}: resample mode resolved to {proc.resample_mode!r}, "
+             f"expected {want_mode!r}")
+    print(f"flat grid {bm.flat_shape}, planes {bm.plane_shape}, o={bm.grad_offset} "
+          f"r={bm.sat_radius} dr={bm.disc_radius}, mode {proc.resample_mode}")
+
+    def dispatch(now):
+        return proc.device_step(raw, "RGGB", state["tracked"])
+
+    def finish(out, now):
+        wrapper = proc.finish_frame(out, now)[0]
+        state["tracked"] = tracked_from({0: wrapper}, now + 0.01, slots)
+        return [wrapper]
+
+    res = drive(torch, recorder, label, scenes[:1], FRAMES, want_launches, dispatch,
+                finish, "device_step", "frame")
+    res["run"] = lambda: proc.finish_frame(dispatch(0.0), 0.0)
+    return res
+
+
+def run_slice3(torch, recorder, rig, label: str, mode: str, want_mode: str,
+               want_launches: dict, frame_sets: int) -> dict:
+    """Drive the 4-camera rig as one frame-set on the card through
+    ``MultiCamApp.dispatch_frames`` -> ``finish_frames`` for ``frame_sets``
+    frame-sets with tracking fed back from the previous one."""
+    phase(label)
+    from vision_processor_tpu_torch.app.processor import TrackedArrays
+    from vision_processor_tpu_torch.io.camera import RawFrame
+
+    _, scenes, raws, (width, height) = rig
+    app = _offline_fleet(torch, rig, mode, 1.25)
+    frames = [RawFrame(data=r, fmt="RGGB", width=width, height=height) for r in raws]
+    slots = app.processors[0].det_cfg.max_tracked
+
+    # one warm-up frame-set (first-use allocations, grids, markings)
+    state = {"tracked": TrackedArrays.build({}, 0.0, slots)}
+    app.finish_frames(app.dispatch_frames(frames, 0.0, state["tracked"]), 0.0, frames)
+    bm = app.mc_cfg.bm
+    if bm.resample_mode != want_mode:
+        fail(f"{label}: resample mode resolved to {bm.resample_mode!r}, "
+             f"expected {want_mode!r}")
+    print(f"{app.n_cams} cameras, flat grid {bm.flat_shape}, planes {bm.plane_shape}, "
+          f"o={bm.grad_offset} r={bm.sat_radius} dr={bm.disc_radius}, mode "
+          f"{bm.resample_mode}, staggered {app.staggered}")
+
+    def dispatch(now):
+        return app.dispatch_frames(frames, now, state["tracked"])
+
+    def finish(out, now):
+        wrappers = app.finish_frames(out, now, frames)
+        state["tracked"] = tracked_from(dict(enumerate(wrappers)), now + 0.01, slots)
+        return wrappers
+
+    res = drive(torch, recorder, label, scenes, frame_sets, want_launches, dispatch,
+                finish, "dispatch_frames", "frame-set")
+    res["run"] = lambda: app.finish_frames(dispatch(0.0), 0.0, frames)
+    res["fleet"] = (app, frames, state["tracked"])
+    return res
 
 
 def check_staggered(torch, app, frames, tracked) -> None:
@@ -607,6 +597,191 @@ def check_staggered(torch, app, frames, tracked) -> None:
           f"{'bit-equal' if same else 'within 1e-3 / 1e-4'}")
 
 
+def run_slice4(torch, recorder, rig, label: str, factor: float, frame_sets: int) -> dict:
+    """Drive the 4-camera rig through ``parallel.multicam.batched_step`` with
+    ``rs_grids=None`` (the in-line projection resample) and on-device
+    finishing for ``frame_sets`` frame-sets, the summaries and the colour
+    table fed back; the wrappers come from the fleet's host finishing. Then
+    the blobs of the last frame-set against the gather-grid step's."""
+    phase(label)
+    import numpy as np
+
+    from vision_processor_tpu_torch.app.processor import TrackedArrays
+    from vision_processor_tpu_torch.io.camera import RawFrame
+    from vision_processor_tpu_torch.parallel.multicam import batched_step, empty_summary
+    from vision_processor_tpu_torch.utils.state import to_numpy, to_torch
+
+    _, scenes, raws, (width, height) = rig
+    app = _offline_fleet(torch, rig, "gather", factor)
+    dev = app.device
+    frames = [RawFrame(data=r, fmt="RGGB", width=width, height=height) for r in raws]
+    slots = app.processors[0].det_cfg.max_tracked
+    if not app._ensure_step("RGGB", raws[0].shape):
+        fail(f"{label}: the fleet is not calibrated")
+    # the fleet's inputs on the card; the gather grids are kept for the
+    # comparison after the run, and the in-line step never reads them
+    state, grids = app._device_inputs(TrackedArrays.build({}, 0.0, slots))
+    fleet = app._fleet_params()
+    fleet["tracked_time_delta"] = np.float32(0.01)
+    params = to_torch(fleet, dev)
+    cfg = app.mc_cfg
+    step = batched_step(cfg)
+    raws_t = torch.from_numpy(np.stack(raws)).to(dev)
+    bm = cfg.bm
+    print(f"{cfg.n_cams} cameras, factor {factor}, flat grid {bm.flat_shape}, planes "
+          f"{bm.plane_shape}, o={bm.grad_offset} r={bm.sat_radius} dr={bm.disc_radius}, "
+          f"rs_grids=None (in line)")
+
+    def run(colors, summary, prev, rs_grids=None):
+        return step(raws_t, state["packed"], state["scales"], state["offsets"], colors,
+                    summary, params, rs_grids, prev, state["refs"], app._marks)
+
+    def finish(out, now):
+        blobs, det, summary, fin = out
+        wrappers = app.finish_frames((blobs, det, fin), now, frames)
+        carry.update(last=carry["in"], wrappers=wrappers)
+        carry["in"] = (fin["colors7"], summary, carry["in"][1])
+        return wrappers
+
+    empty = empty_summary(cfg, dev)
+    carry = {"in": (state["colors"], empty, empty)}
+    finish(run(*carry["in"]), 0.0)  # warm-up (first-use allocations)
+    carry["in"] = (state["colors"], empty, empty)
+    res = drive(torch, recorder, label, scenes, frame_sets, SLICE4_LAUNCHES,
+                lambda now: run(*carry["in"]), finish, "batched_step", "frame-set")
+
+    # the gather-grid step on the same frames: the same blobs
+    inline = to_numpy(run(*carry["last"])[0])
+    cached = to_numpy(run(*carry["last"], rs_grids=grids)[0])
+    same_valid = bool(np.array_equal(inline["valid"], cached["valid"]))
+    v = inline["valid"]
+    dpos = float(np.abs(inline["field_pos"][v] - cached["field_pos"][v]).max()) \
+        if v.any() else 0.0
+    print(f"in line vs gather grid: validity equal {same_valid}, counts "
+          f"{inline['count'].tolist()} vs {cached['count'].tolist()}, max field_pos "
+          f"difference {dpos:.6f} mm (tol 0.05)")
+    if not (same_valid and dpos <= 0.05):
+        fail(f"{label}: the in-line blobs differ from the gather grid's")
+    res["inline_vs_grid_mm"] = dpos
+    res["last_wrappers"] = carry["wrappers"]
+    res["run"] = lambda: finish(run(*carry["last"]), 0.0)
+    return res
+
+
+def run_one_camera(torch, rig, wrappers: list) -> None:
+    """Camera 0 for one frame through ``BlobMachine`` and one through
+    ``full_step(rs_grid=None)`` with on-device finishing, the tracked prior
+    from slice 4's last frame-set: 4 bots within 30 mm, the ball within 40
+    mm, and the two blob sets equal."""
+    phase("slice 4: one camera, BlobMachine and full_step(rs_grid=None)")
+    import numpy as np
+
+    from vision_processor_tpu_torch.app.processor import Processor, full_step
+    from vision_processor_tpu_torch.ops import cuda as K
+    from vision_processor_tpu_torch.ops.pipeline import BlobMachine
+    from vision_processor_tpu_torch.utils.state import to_numpy, to_torch
+
+    geometry, scenes, raws, (width, height) = rig
+    dev = torch.device("cuda", 0)
+    proc = Processor(vision_config("gather"), max_tracked=32, device=dev)
+    proc.geometry_check(width, height, geometry, 1)
+    proc._ensure_config("RGGB", raws[0].shape)
+    tracked = tracked_from({0: wrappers[0]}, 0.1, proc.det_cfg.max_tracked)
+    params = proc.params()
+    state = to_torch({"packed": proc.perspective.model.packed(),
+                      "colors": proc.colors.packed(), "refs": proc.colors.packed_refs(),
+                      "tracked": tracked.as_dict(), "params": params}, dev)
+    machine = BlobMachine(proc._bm_cfg, device=dev)
+    K.reset_launches()
+    raw_t = torch.from_numpy(raws[0]).to(dev)
+    bm_blobs = to_numpy(machine(raw_t, proc.perspective.model.packed(),
+                                params["max_bot_height"], params["min_circularity"]))
+    out = full_step(proc._bm_cfg, proc.det_cfg, raw_t, state["packed"], state["colors"],
+                    state["tracked"], state["params"], None, state["refs"],
+                    proc._field_marks())
+    wrapper, blobs, _ = proc.finish_frame(out, 0.1)
+    launches = dict(K.LAUNCHES)
+    found, err, berr = check_detections("slice 4 full_step(rs_grid=None)", scenes[0],
+                                        wrapper)
+    if launches["resample_packed"] != 2 or launches["corner_stack"] or \
+            launches["gather_corners"] or launches["band_pass"]:
+        fail(f"one camera: launches {launches}, expected resample_packed 2 and no "
+             f"corner_stack, gather_corners or band_pass")
+    same = bool(np.array_equal(bm_blobs["valid"], blobs["valid"])) and bool(
+        np.array_equal(bm_blobs["field_pos"], blobs["field_pos"]))
+    if not same:
+        fail("BlobMachine and full_step(rs_grid=None) disagree on camera 0's blobs")
+    print(f"camera 0, flat grid {proc._bm_cfg.flat_shape}: BlobMachine {int(bm_blobs['count'])} "
+          f"candidates, {int(bm_blobs['valid'].sum())} blobs, equal to full_step's; "
+          f"full_step bots {sorted(found)}, max bot err {err:.2f} mm, ball err "
+          f"{berr:.2f} mm; launches {launches}")
+
+
+def _e1_inputs(torch):
+    """E1's experiment (pallas_band_warp.py main()): src (4, 720, 896) u8
+    values, pos (4, 432, 896) a bent ramp with per-channel quarter-pixel
+    offsets, window 16, starts from block_starts."""
+    import numpy as np
+
+    from vision_processor_tpu_torch.ops.band_warp import block_starts
+
+    ch, r, c, n_out, win = 4, 720, 896, 432, 16
+    rng = np.random.default_rng(0)
+    src = rng.integers(0, 256, (ch, r, c)).astype(np.float32)
+    base = np.linspace(1.0, r - 3.0, n_out)
+    bend = np.sin(np.linspace(0, np.pi, c)) * 4.0
+    pos = np.clip(base[:, None] + bend[None, :] * (base[:, None] / r - 0.5),
+                  1.0, r - 3.0).astype(np.float32)
+    pos4 = np.stack([pos, pos, pos + 0.25, pos + 0.25]).astype(np.float32)
+    dev = torch.device("cuda", 0)
+    pos_t = torch.from_numpy(pos).to(dev)
+    return (torch.from_numpy(src).to(dev), torch.from_numpy(pos4).to(dev),
+            block_starts(pos_t, win, r), win)
+
+
+E5_SHAPES = ((432, 770), (540, 962))
+E5_MS = (19, 16, 6)
+E5_BLKS = (8, 32, 64)
+
+
+def _e5_inputs(torch, h: int, w: int):
+    """E5's experiment (rowtopk_blk.py): about 1500 valid entries of
+    |normal| + 1 in an (h, w) map, the rest -inf."""
+    g = torch.Generator(device="cuda").manual_seed(h)
+    x = torch.randn(h, w, device="cuda", generator=g).abs() + 1.0
+    keep = torch.rand(h, w, device="cuda", generator=g) < 1500.0 / (h * w)
+    return torch.where(keep, x, float("-inf")).contiguous()
+
+
+def run_contracts(torch) -> dict:
+    """E1 and E5 through their own entry points, on their experiments'
+    inputs, with the launch counts set to 0 just before and read just
+    after: one banded warp pass, and the row top-k sweep (2 shapes x 3 m x
+    3 rows-per-block)."""
+    phase("E1 and E5 at their own contracts")
+    import vision_processor_tpu_torch.ops.band_warp as BW
+    import vision_processor_tpu_torch.ops.topk as T
+    from vision_processor_tpu_torch.ops import cuda as K
+
+    e1 = _e1_inputs(torch)
+    e5 = {shape: _e5_inputs(torch, *shape) for shape in E5_SHAPES}
+    torch.cuda.synchronize()
+    K.reset_launches()
+    out1 = BW.band_warp(*e1)
+    out5 = {(shape, m, blk): T.row_topk_blk(x, m, blk)
+            for shape, x in e5.items() for m in E5_MS for blk in E5_BLKS}
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    print(f"band_warp: src {tuple(e1[0].shape)}, pos {tuple(e1[1].shape)}, r0 "
+          f"{tuple(e1[2].shape)}, win {e1[3]} -> {tuple(out1.shape)}; row_topk_blk: "
+          f"{len(out5)} calls; launches {launches}")
+    want = {name: 0 for name in launches}
+    want.update(band_warp=1, row_topk_blk=len(out5))
+    if launches != want:
+        fail(f"contracts: launches {launches}, expected {want}")
+    return {"launches": launches, "e1": e1, "e5": e5}
+
+
 STAGES_HEAD = (("app.processor", "blob_machine", "blob machine"),)
 STAGES_SLICE1 = (
     ("ops.warp", "resample_flat_warp", "  resample (warp, B1 x2)"),
@@ -634,6 +809,15 @@ STAGES_SLICE3 = (
     ("models.device_finish", "update_colors_device", "  color update (2 k-means)"),
     ("app.multicam_app", "to_torch", "host->device inputs"),
     ("app.multicam_app", "to_numpy", "device->host fetch"),
+)
+# slice 3's stages with the in-line resample in place of the gather; the
+# step's inputs are uploaded once, before the run, so it has no upload stage
+STAGES_SLICE4 = (
+    STAGES_SLICE3[:1]
+    + (("ops.pipeline", "resample_frame", "  resample (in line: projection + E2/E3)"),
+       ("ops.frame", "flat_image_points", "    projection (per flat pixel)"),
+       ("ops.pipeline", "resample_packed", "    sampler (E2/E3)"))
+    + STAGES_SLICE3[3:-2] + STAGES_SLICE3[-1:]
 )
 STAGES_TAIL = (
     ("app.processor", "detect", "detect"),
@@ -798,6 +982,24 @@ def _result(name, src, repl, err, t_k, t_p, bnd, t_lib):
             "bound": bnd, "t_lib": t_lib}
 
 
+def _lerp_yardstick(torch, src, pos):
+    """The library yardstick of a 1-D lerp along axis 1 of src (ch, R, C) at
+    pos (ch, n_out, C): grid_sample with one column per batch entry (width
+    1, so x is exact); float64, since a float32 grid's normalisation moves
+    the taps by up to 1e-4 px. Returns (the call, its result as float32)."""
+    ch, r, c = src.shape
+    n_out = pos.shape[1]
+    inp = src.permute(0, 2, 1).reshape(ch * c, 1, r, 1).double().contiguous()
+    y = pos.permute(0, 2, 1).reshape(ch * c, n_out, 1).double() * (2.0 / (r - 1)) - 1.0
+    grid = torch.stack([torch.zeros_like(y), y], dim=-1).contiguous()
+
+    def lib():
+        return torch.nn.functional.grid_sample(inp, grid, mode="bilinear",
+                                               padding_mode="border", align_corners=True)
+
+    return lib, lib().reshape(ch, c, n_out).permute(0, 2, 1).float()
+
+
 def _check_b1(torch, calls):
     import vision_processor_tpu_torch.ops.warp as W
 
@@ -812,21 +1014,7 @@ def _check_b1(torch, calls):
         errs.append(float((got - want).abs().max()))
         t_k = _add(t_k, time_fn(torch, lambda: band_pass(src, pos)))
         t_p = _add(t_p, time_fn(torch, lambda: W._band_pass_plain(src, pos)))
-        # library yardstick: grid_sample as a 1-D lerp along axis 1, one
-        # column per batch entry (width 1, so x is exact); float64, since a
-        # float32 grid's normalisation moves the taps by up to 1e-4 px
-        ch, r, c = src.shape
-        n_out = pos.shape[1]
-        inp = src.permute(0, 2, 1).reshape(ch * c, 1, r, 1).double().contiguous()
-        y = pos.permute(0, 2, 1).reshape(ch * c, n_out, 1).double() * (2.0 / (r - 1)) - 1.0
-        grid = torch.stack([torch.zeros_like(y), y], dim=-1).contiguous()
-
-        def lib():
-            return torch.nn.functional.grid_sample(inp, grid, mode="bilinear",
-                                                   padding_mode="border",
-                                                   align_corners=True)
-
-        lib_out = lib().reshape(ch, c, n_out).permute(0, 2, 1).float()
+        lib, lib_out = _lerp_yardstick(torch, src, pos)
         lib_err = max(lib_err, float((lib_out - want).abs().max()))
         t_l = _add(t_l, time_fn(torch, lib))
         shapes.append(f"src {tuple(src.shape)} pos {tuple(pos.shape)}")
@@ -1126,61 +1314,234 @@ def _check_e4(torch, calls):
                    bound(20 * h * w, 0), None)
 
 
-# The TPU kernels still to port, at their experiments' own shapes: (name,
-# TPU kernel, shapes, bytes moved (each input read once, each output
-# written once), float32 operations of the function). Derived bounds
-# only: none of them is on a path of the port yet.
-_E1_OUT = 4 * 432 * 896  # its main(): NOUT = pad_to(432, 8) rows of pass 2
-_K2_PIXELS = 540 * 962
-UNPORTED = (
-    ("E1", "experiments/pallas_band_warp.py:42",
-     "src (4, 720, 896) f32, pos (4, 432, 896) f32, r0 (54, 7) i32 -> (4, 432, 896) f32; "
-     "5 operations per output (B1's count)",
-     4 * (4 * 720 * 896 + 2 * _E1_OUT + 54 * 7), 5 * _E1_OUT),
-    # per flat pixel: u, v 2; floor + clip 6; per plane the clipped
-    # fractions 8 and three lerps 12 (x 4); RGGB green 3; dRGB 15
-    ("E2", "experiments/k2_proto.py:43",
-     "packed (540, 960, 4) f32, px/py (540, 962) f32 -> 3 x (544, 1024) f32; "
-     "106 operations per flat pixel",
-     4 * (540 * 960 * 4 + 2 * _K2_PIXELS + 3 * 544 * 1024), 106 * _K2_PIXELS),
-    ("E3", "experiments/k2_stages.py:30", "E2's function and shapes",
-     4 * (540 * 960 * 4 + 2 * _K2_PIXELS + 3 * 544 * 1024), 106 * _K2_PIXELS),
-    ("E5", "experiments/rowtopk_blk.py:48",
-     "(540, 962) f32, m=19 -> (540, 19) f32 + i32 (the largest of its sweep)",
-     4 * 540 * 962 + 8 * 540 * 19, 540 * 962),
-    ("E5", "experiments/rowtopk_blk.py:48",
-     "(432, 770) f32, m=6 -> (432, 6) f32 + i32 (the smallest of its sweep)",
-     4 * 432 * 770 + 8 * 432 * 6, 432 * 770),
-)
+# per flat pixel of the in-line sampler: u, v 2; floor + clip 6; per plane
+# the clipped fractions 8 and three lerps 12 (x 4); RGGB green 3; dRGB 15
+_E2_OPS_PER_PIXEL = 106
 
 
-def unported_bounds() -> list:
-    print("bounds of the TPU kernels still to port (derived from the experiments' shapes, "
-          "not measured):")
+def _exact_yardstick(torch, raw, px, py, fmt):
+    """The library yardstick of the sampler: one grid_sample call over the
+    4 planes as a batch, each at its own quarter-pixel positions (the
+    exact per-plane bilinear resample, not E2/E3's shared-cell function:
+    it differs at cell boundaries and clamps at the edges another way);
+    float64 for the grid's normalisation. Returns (the call, its (4, Hf,
+    Wf) samples as float32, the port's exact per-plane samples)."""
+    from vision_processor_tpu_torch.ops import frame as F
+
+    planes = F.raw2quad(raw, fmt)  # (4, H, W)
+    h, w = planes.shape[1:]
+    offs = torch.tensor(F._PLANE_OFFSETS[fmt], dtype=torch.float64, device=raw.device)
+    gx = (px.double()[None] + offs[:, 0, None, None]) * (2.0 / w) - 1.0
+    gy = (py.double()[None] + offs[:, 1, None, None]) * (2.0 / h) - 1.0
+    grid = torch.stack([gx, gy], dim=-1).contiguous()
+    inp = planes.double()[:, None].contiguous()
+
+    def lib():
+        return torch.nn.functional.grid_sample(inp, grid, mode="bilinear",
+                                               padding_mode="border", align_corners=False)
+
+    exact = torch.stack([F.bilinear_sample(planes[c], px + offs[c, 0].float(),
+                                           py + offs[c, 1].float()) for c in range(4)])
+    return lib, lib()[:, 0].float(), exact
+
+
+def _check_e2e3(torch, calls, calls_f1):
+    """E2/E3's kernel (the in-line sampler) on slice 4's last inputs at both
+    factors, the projection's interleaved layout, positions off every edge,
+    GRBG, BGR and the packed-plane entries at E2/E3's own shape: bit-equal
+    to the plain version in every case."""
+    import vision_processor_tpu_torch.ops.resample_packed as RP
+    from vision_processor_tpu_torch.ops.frame import raw2planes_packed
+
+    sample = RP.resample_packed
+    (raw, px, py, fmt), _ = calls[-1]  # the last camera of slice 4's last frame-set
+    (raw1, px1, py1, _), _ = calls_f1[-1]  # factor 1.0: flat (540, 962)
+    h, w = raw.shape[0] // 2, raw.shape[1] // 2
+    g = torch.Generator(device="cuda").manual_seed(13)
+    hf, wf = px.shape
+    epx = (torch.rand(hf, wf, device="cuda", generator=g) * (w + 8.0) - 4.0).contiguous()
+    epy = (torch.rand(hf, wf, device="cuda", generator=g) * (h + 8.0) - 4.0).contiguous()
+    bgr = torch.randint(0, 256, (h, w, 3), dtype=torch.uint8, device="cuda", generator=g)
+    img = torch.stack([px, py], dim=-1)
+    planes1 = raw2planes_packed(raw1, fmt)
+    cases = [
+        (f"slice 4 {fmt} raw {tuple(raw.shape)}, flat {tuple(px.shape)} (factor 1.25)",
+         lambda: sample(raw, px, py, fmt), lambda: RP._resample_raw_plain(raw, px, py, fmt)),
+        (f"factor 1.0 raw, flat {tuple(px1.shape)}",
+         lambda: sample(raw1, px1, py1, fmt),
+         lambda: RP._resample_raw_plain(raw1, px1, py1, fmt)),
+        ("interleaved px/py (the projection's (Hf, Wf, 2) layout)",
+         lambda: sample(raw, img[..., 0], img[..., 1], fmt),
+         lambda: RP._resample_raw_plain(raw, px, py, fmt)),
+        ("positions up to 4 px off all four sides",
+         lambda: sample(raw, epx, epy, fmt), lambda: RP._resample_raw_plain(raw, epx, epy, fmt)),
+        ("GRBG raw", lambda: sample(raw, epx, epy, "GRBG"),
+         lambda: RP._resample_raw_plain(raw, epx, epy, "GRBG")),
+        (f"BGR {tuple(bgr.shape)}", lambda: sample(bgr, epx, epy, "BGR"),
+         lambda: RP._resample_raw_plain(bgr, epx, epy, "BGR")),
+        (f"packed planes f32 {tuple(planes1.shape)} (E2/E3's contract and shape)",
+         lambda: RP.resample_packed_planes(planes1, px1, py1, fmt),
+         lambda: RP._resample_packed_plain(planes1, px1, py1, fmt)),
+        ("packed planes u8", lambda: RP.resample_packed_planes(planes1.to(torch.uint8), px1,
+                                                               py1, fmt),
+         lambda: RP._resample_packed_plain(planes1.to(torch.uint8), px1, py1, fmt)),
+    ]
+    err = 0.0
+    for label, kern, plain in cases:
+        got, want = kern(), plain()
+        e = float((got - want).abs().max())
+        err = max(err, e)
+        print(f"E2/E3 resample_packed {label} -> {tuple(got.shape)}: bit-equal "
+              f"{torch.equal(got, want)}, max abs err {e:.3g}")
+        if not torch.equal(got, want):
+            fail(f"resample_packed ({label}) disagrees with its plain version")
+    t_k = time_fn(torch, lambda: sample(raw, px, py, fmt))
+    t_p = time_fn(torch, lambda: RP._resample_raw_plain(raw, px, py, fmt))
+    t_k1 = time_fn(torch, lambda: sample(raw1, px1, py1, fmt))
+    t_p1 = time_fn(torch, lambda: RP._resample_raw_plain(raw1, px1, py1, fmt))
+    t_pk = time_fn(torch, lambda: RP.resample_packed_planes(planes1, px1, py1, fmt))
+    # the same call over a bank of 8 distinct frames and position grids, so
+    # that the inputs and outputs (about 70 MB) do not stay in the 50 MB L2
+    bank = [(torch.roll(raw, 2 * i, dims=1).contiguous(), (px + 0.001 * i).contiguous(),
+             (py - 0.001 * i).contiguous()) for i in range(8)]
+    outs = [torch.empty((hf, wf, 3), device="cuda") for _ in range(8)]
+    turn = [0]
+
+    def banked():
+        i = turn[0] % 8
+        turn[0] += 1
+        outs[i] = sample(*bank[i], fmt)
+
+    t_bank = time_fn(torch, banked, reps=24)
+    lib, lib_out, exact = _exact_yardstick(torch, raw, px, py, fmt)
+    inner = ((px > 2) & (px < w - 2) & (py > 2) & (py < h - 2))[None].expand_as(exact)
+    lib_err = float((lib_out - exact)[inner].abs().max()) if bool(inner.any()) else 0.0
+    t_l = time_fn(torch, lib)
+    n, n1 = px.numel(), px1.numel()
+    print(f"E2/E3 resample_packed (raw {tuple(raw.shape)} u8 + px/py {tuple(px.shape)} -> "
+          f"({hf}, {wf}, 3) f32): max abs err {err:.3g} (tol 0, bit-equal); kernel "
+          f"{_fmt(t_k)} vs plain {_fmt(t_p)} (the same inputs each call, L2-resident as on "
+          f"the path); over a bank of 8 input sets {_fmt(t_bank)}; factor 1.0 flat "
+          f"{tuple(px1.shape)}: kernel {_fmt(t_k1)} vs plain {_fmt(t_p1)}, packed-plane "
+          f"f32 entry {_fmt(t_pk)}; bound at factor 1.0 "
+          f"{bound(raw1.numel() + 20 * n1, _E2_OPS_PER_PIXEL * n1)[0]:.6f} ms; library "
+          f"grid_sample (f64, the exact per-plane bilinear, not this function) {_fmt(t_l)}, "
+          f"max abs err vs the exact sampler away from the edges {lib_err:.3g} (tol 1e-3)")
+    if not lib_err <= 1e-3:
+        fail("the grid_sample yardstick disagrees with the exact sampler")
+    # bytes: the raw frame read once, px and py, the 3 output planes
+    return _result("resample_packed", "vision_processor_tpu_torch/csrc/resample_packed.cu",
+                   "experiments/k2_proto.py:43", err, t_k, t_p,
+                   bound(raw.numel() + 20 * n, _E2_OPS_PER_PIXEL * n), t_l)
+
+
+def _check_e1(torch, contract):
+    """E1 on its contract run's inputs, bit-equal to its plain version, and
+    B1 (the band pass) at the same shapes."""
+    import vision_processor_tpu_torch.ops.band_warp as BW
+    import vision_processor_tpu_torch.ops.warp as W
+
+    band_warp = getattr(BW.band_warp, "__wrapped__", BW.band_warp)
+    band_pass = W.band_pass.__wrapped__
+    src, pos, r0, win = contract["e1"]
+    got = band_warp(src, pos, r0, win)
+    want = BW._band_warp_plain(src, pos, r0, win)
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        fail(f"band_warp disagrees with its plain version (max abs err {err:.3g})")
+    b1 = band_pass(src, pos)
+    b1_err = float((b1 - got).abs().max())
+    lib, lib_out = _lerp_yardstick(torch, src, pos)
+    lib_err = float((lib_out - got).abs().max())
+    # the kernel alone; the wrapper adds its precondition check (device
+    # comparisons and one device->host read) to every call
+    t_k = time_fn(torch, lambda: BW._launch(src, pos, r0, win))
+    t_w = time_fn(torch, lambda: band_warp(src, pos, r0, win))
+    t_p = time_fn(torch, lambda: BW._band_warp_plain(src, pos, r0, win))
+    t_b1 = time_fn(torch, lambda: band_pass(src, pos))
+    t_l = time_fn(torch, lib)
+    print(f"E1 band_warp (src {tuple(src.shape)}, pos {tuple(pos.shape)}, r0 "
+          f"{tuple(r0.shape)}, win {win}): bit-equal, max abs err {err:.3g} (tol 0); "
+          f"kernel {_fmt(t_k)} (with the wrapper's window check {_fmt(t_w)}) vs plain "
+          f"{_fmt(t_p)}; B1 band_pass at the same shapes "
+          f"{_fmt(t_b1)}, max abs diff from E1 {b1_err:.3g} (tol 1e-3: hat sum vs 2-tap "
+          f"rounding); library grid_sample (f64) {_fmt(t_l)}, max abs diff {lib_err:.3g} "
+          f"(tol 1e-3)")
+    if not (b1_err <= 1e-3 and lib_err <= 1e-3):
+        fail("band_warp disagrees with the band pass or the grid_sample yardstick")
+    res = _result("band_warp", "vision_processor_tpu_torch/csrc/band_warp.cu",
+                  "experiments/pallas_band_warp.py:42", err, t_k, t_p,
+                  bound(4 * (src.numel() + 2 * pos.numel() + r0.numel()),
+                        5 * win * pos.numel()), t_l)
+    res["b1_same_shapes"] = t_b1
+    return res
+
+
+def _check_e5(torch, contract):
+    """E5 at every rows-per-block of the sweep, bit-equal (values and
+    indices) to its plain version and value-equal to B3, timed beside B3
+    at the same shapes; the record row is (540, 962), m 19, 64 rows a
+    block."""
+    import vision_processor_tpu_torch.ops.topk as T
+
+    blk_topk = getattr(T.row_topk_blk, "__wrapped__", T.row_topk_blk)
+    row_topk = T.row_topk.__wrapped__
     rows = []
-    for name, repl, shapes, n_bytes, n_ops in UNPORTED:
-        ms, by = bound(n_bytes, n_ops)
-        print(f"  {name} {repl}: {shapes}: {n_bytes} bytes, {n_ops} operations -> "
-              f"{ms:.6f} ms ({by})")
-        rows.append({"name": name, "replaces": repl, "shapes": shapes, "bytes": n_bytes,
-                     "operations": n_ops, "bound_ms": ms, "bound_by": by})
-    return rows
+    for shape, x in contract["e5"].items():
+        for m in E5_MS:
+            pv, pi = T.select_m(x, m)
+            valid = pv > float("-inf")
+            bv, bi = row_topk(x, m)
+            if not (torch.equal(bv, pv) and torch.equal(bi[valid], pi[valid])):
+                fail(f"B3 and E5's plain version differ at {shape} m={m}")
+            times = {}
+            for blk in E5_BLKS:
+                kv, ki = blk_topk(x, m, blk)
+                if not (torch.equal(kv, pv) and torch.equal(ki, pi)):
+                    fail(f"row_topk_blk {shape} m={m} blk={blk} disagrees with its plain "
+                         f"version")
+                times[blk] = time_fn(torch, lambda: blk_topk(x, m, blk))
+            t_b3 = time_fn(torch, lambda: row_topk(x, m))
+            rows.append((shape, m, times, t_b3))
+            print(f"E5 row_topk_blk {shape} m={m}: bit-equal (values, indices); "
+                  + ", ".join(f"blk {b} {_fmt(t)}" for b, t in times.items())
+                  + f"; B3 row_topk (one block a row) {_fmt(t_b3)}")
+    shape, m, blk = (540, 962), 19, 64
+    x = contract["e5"][shape]
+    t_k = dict((r[1], r[2]) for r in rows if r[0] == shape)[m][blk]
+    t_p = time_fn(torch, lambda: T.select_m(x, m))
+    t_l = time_fn(torch, lambda: torch.topk(x, m, dim=1))
+    print(f"E5 record row: {shape} m={m} blk={blk}: kernel {_fmt(t_k)} vs plain (select_m) "
+          f"{_fmt(t_p)}; library torch.topk {_fmt(t_l)}")
+    res = _result("row_topk_blk", "vision_processor_tpu_torch/csrc/topk.cu",
+                  "experiments/rowtopk_blk.py:48", 0.0, t_k, t_p,
+                  bound(4 * shape[0] * shape[1] + 8 * shape[0] * m, shape[0] * shape[1]), t_l)
+    res["sweep"] = [{"shape": list(r[0]), "m": r[1],
+                     "ms": {str(b): t[1] for b, t in r[2].items()},
+                     "busy_ms": {str(b): t[0] for b, t in r[2].items()},
+                     "b3_ms": r[3][1], "b3_busy_ms": r[3][0]} for r in rows]
+    return res
 
 
-def check_kernels(torch, s1: dict, s2: dict, s3: dict) -> list:
+def check_kernels(torch, s1: dict, s2: dict, s3: dict, s4: dict, s4f1: dict,
+                  contracts: dict) -> list:
     """Each kernel on the last frame's inputs of the slice whose path it
-    belongs to: B1-B4 slice 1's, B5-B7 slice 2's, E4 slice 3's."""
+    belongs to: B1-B4 slice 1's, B5-B7 slice 2's, E4 slice 3's, E2/E3 slice
+    4's; E1 and E5 on their contract run's inputs."""
     phase("kernels vs plain")
-    c1, c2, c3 = s1["calls"], s2["calls"], s3["calls"]
+    c1, c2, c3, c4 = s1["calls"], s2["calls"], s3["calls"], s4["calls"]
     return [
-        _check_b1(torch, c1["band_pass"]),
-        _check_b2(torch, c1["blob_response_fused"]),
-        _check_b3(torch, c1["row_topk"]),
-        _check_b4(torch, c1["query_select_topk"]),
-        _check_b5(torch, c2["circularity_fused"]),
-        _check_b6(torch, c2["combo_chain"]),
-        _check_b7(torch, c2["gather_corners"]),
-        _check_e4(torch, c3["corner_stack"]),
+        ("B1", _check_b1(torch, c1["band_pass"])),
+        ("B2", _check_b2(torch, c1["blob_response_fused"])),
+        ("B3", _check_b3(torch, c1["row_topk"])),
+        ("B4", _check_b4(torch, c1["query_select_topk"])),
+        ("B5", _check_b5(torch, c2["circularity_fused"])),
+        ("B6", _check_b6(torch, c2["combo_chain"])),
+        ("B7", _check_b7(torch, c2["gather_corners"])),
+        ("E1", _check_e1(torch, contracts)),
+        ("E2", _check_e2e3(torch, c4["resample_packed"], s4f1["calls"]["resample_packed"])),
+        ("E4", _check_e4(torch, c3["corner_stack"])),
+        ("E5", _check_e5(torch, contracts)),
     ]
 
 
@@ -1211,10 +1572,17 @@ def main() -> None:
     s3w = run_slice3(torch, recorder, rig, "slice 3, warp", "auto", "warp",
                      SLICE3_WARP_LAUNCHES, WARP_FRAME_SETS)
     check_staggered(torch, *s3["fleet"])
+    s4 = run_slice4(torch, recorder, rig, "slice 4", 1.25, FRAMES)
+    s4f1 = run_slice4(torch, recorder, rig, "slice 4, factor 1.0", 1.0,
+                      SLICE4_FACTOR1_FRAME_SETS)
+    run_one_camera(torch, rig, s4["last_wrappers"])
+    contracts = run_contracts(torch)
     for label, s, unit in (("slice 1 (warp, score-first)", s1, "frame"),
                            ("slice 2 (gather, circ-first, fused combo)", s2, "frame"),
                            ("slice 3 (4 cameras, gather)", s3, "frame-set"),
-                           ("slice 3 (4 cameras, warp)", s3w, "frame-set")):
+                           ("slice 3 (4 cameras, warp)", s3w, "frame-set"),
+                           ("slice 4 (4 cameras, in line)", s4, "frame-set"),
+                           ("slice 4 (4 cameras, in line, factor 1.0)", s4f1, "frame-set")):
         print(f"{label}: median device span {s['median_device_ms']:.3f} ms per {unit}, "
               f"{unit}-serial {1e3 / s['median_frame_ms']:.1f} {unit}s/s")
     if args.profile:
@@ -1230,26 +1598,40 @@ def main() -> None:
                     torch, s2["run"], stages2, "slice 2, VPTPU_COMBO_KERNEL=0")
         s3["profile"] = profile_frames(torch, s3["run"], STAGES_SLICE3, "slice 3",
                                        "frame-set")
-    results = check_kernels(torch, s1, s2, s3)
+        s4["profile"] = profile_frames(torch, s4["run"], STAGES_SLICE4, "slice 4",
+                                       "frame-set")
+    results = check_kernels(torch, s1, s2, s3, s4, s4f1, contracts)
+    # E3 computes E2's function: one kernel, one measurement, two rows
+    e2 = dict(results)["E2"]
+    results.insert([row for row, _ in results].index("E4"),
+                   ("E3", dict(e2, repl="experiments/k2_stages.py:30")))
 
     path_of = {name: s1 for name in WRAPPERS}
-    path_of.update(gather_corners=s2, circularity_fused=s2, combo_chain=s2, corner_stack=s3)
+    path_of.update(gather_corners=s2, circularity_fused=s2, combo_chain=s2, corner_stack=s3,
+                   resample_packed=s4, band_warp=contracts, row_topk_blk=contracts)
     record = {"kernels": [
-        {"name": r["name"], "route": "cuda", "source": r["src"], "replaces": r["repl"],
+        {"name": r["name"], "row": row, "route": "cuda", "source": r["src"],
+         "replaces": r["repl"],
          "launches": path_of[r["name"]]["launches"][r["name"]], "max_abs_err": r["err"],
          "ms": r["t_k"][1], "plain_ms": r["t_p"][1], "bound_ms": r["bound"][0],
          "bound_by": r["bound"][1],
          "library_ms": None if r["t_lib"] is None else r["t_lib"][1],
          "busy_ms": r["t_k"][0], "plain_busy_ms": r["t_p"][0],
          "library_busy_ms": None if r["t_lib"] is None else r["t_lib"][0]}
-        for r in results
+        for row, r in results
     ]}
     OUT.mkdir(parents=True, exist_ok=True)
+    skip = ("calls", "run", "fleet", "last_wrappers", "e1", "e5")
     (OUT / "result.json").write_text(json.dumps({
-        "card": card, "kernels": record["kernels"], "unported_bounds": unported_bounds(),
-        "slices": {label: {k: v for k, v in s.items() if k not in ("calls", "run", "fleet")}
+        "card": card, "kernels": record["kernels"],
+        "e1_vs_b1": {"b1_busy_ms": dict(results)["E1"]["b1_same_shapes"][0],
+                     "b1_ms": dict(results)["E1"]["b1_same_shapes"][1]},
+        "e5_sweep": dict(results)["E5"]["sweep"],
+        "slices": {label: {k: v for k, v in s.items() if k not in skip}
                    for label, s in (("slice 1", s1), ("slice 2", s2), ("slice 3", s3),
-                                    ("slice 3, warp", s3w))},
+                                    ("slice 3, warp", s3w), ("slice 4", s4),
+                                    ("slice 4, factor 1.0", s4f1),
+                                    ("E1 and E5 contracts", contracts))},
     }, indent=1))
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))

@@ -186,7 +186,7 @@ def test_score_first_switch_read_at_call_time(monkeypatch):
             "ub": torch.full((20, 36), 0.25), "vb": torch.full((20, 36), 0.75)}
     for value, want in (("0", "extract_blobs"), ("1", "extract_blobs_scored")):
         monkeypatch.setenv("VPTPU_SCOREFIRST", value)
-        out = P.blob_machine(cfg, raw, torch.tensor(-1e9), grid)
+        out = P.blob_machine(cfg, raw, None, None, torch.tensor(-1e9), rs_grid=grid)
         assert calls[-1] == want and out["field_pos"].shape == (16, 2)
 
 

@@ -322,11 +322,13 @@ def test_grids_and_field_pos_follow_each_camera(rig):
     grid = {k: v[1] for k, v in rig.tgrids.items()}
     scale = float(rig.inputs["scales"][1])
     off = rig.inputs["offsets"][1]
-    base = blob_machine(rig.tcfg.bm, raw, 15.0, grid, field_scale=scale,
-                        field_offset=tuple(off))
-    moved = blob_machine(rig.tcfg.bm, raw, 15.0, grid, field_scale=scale,
-                         field_offset=tuple(off + np.float32(100.0)))
-    default = blob_machine(rig.tcfg.bm, raw, 15.0, grid)  # the config's (0, 0)
+    cam = torch.from_numpy(rig.inputs["packed"][1])
+    base = blob_machine(rig.tcfg.bm, raw, cam, MAXH, 15.0, field_scale=scale,
+                        field_offset=tuple(off), rs_grid=grid)
+    moved = blob_machine(rig.tcfg.bm, raw, cam, MAXH, 15.0, field_scale=scale,
+                         field_offset=tuple(off + np.float32(100.0)), rs_grid=grid)
+    default = blob_machine(rig.tcfg.bm, raw, cam, MAXH, 15.0,
+                           rs_grid=grid)  # the config's (0, 0)
     v = base["valid"]
     assert int(v.sum()) > 5
     np.testing.assert_allclose((moved["field_pos"] - base["field_pos"])[v].numpy(), 100.0,

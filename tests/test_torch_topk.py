@@ -179,3 +179,50 @@ def test_kernels_match_plain_on_card(cuda_device):
         assert torch.equal(kv, pv)
         valid = pv > -np.inf
         assert torch.equal(ki[valid], pi[valid])
+
+
+@pytest.mark.parametrize("m", [6, 16, 19])
+def test_row_topk_blk_parity(m):
+    """E5 (experiments/rowtopk_blk.py ``row_topk_blk``: the Pallas
+    ``_select_m`` at a swept row block) against the JAX ``row_topk`` in
+    interpret mode, which runs the same ``_select_m``: values and indices
+    bit-equal, exhausted slots (-inf, 0) included; and ``lax.top_k``'s
+    values and valid indices (B3's plain version)."""
+    x = _rows_case()
+    before = dict(T.cuda.LAUNCHES)
+    pv, pi = T.row_topk_blk(torch.from_numpy(x), m, blk=32)
+    assert T.cuda.LAUNCHES == before
+    kv, ki = JT.row_topk(jnp.asarray(x), m, interpret=True)
+    pv, pi = pv.numpy(), pi.numpy()
+    np.testing.assert_array_equal(pv, np.asarray(kv))
+    np.testing.assert_array_equal(pi, np.asarray(ki))
+    assert (pi[3] == 0).all() and (pv[3] == -np.inf).all()  # the exhausted row
+    sv, si = T._row_topk_plain(torch.from_numpy(x), m)
+    np.testing.assert_array_equal(pv, sv.numpy())
+    valid = pv > -np.inf
+    np.testing.assert_array_equal(pi[valid], si.numpy()[valid])
+    with pytest.raises(ValueError):
+        T.row_topk_blk(torch.from_numpy(x), m, blk=0)
+
+
+def _blk_case(h, w, seed):
+    """rowtopk_blk.py's inputs: about 1500 valid entries, |normal| + 1,
+    plus a tie row and an exhausted row."""
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(h, w)).astype(np.float32)
+    mask = rng.random((h, w)) < 1500.0 / (h * w)
+    x = np.where(mask, np.abs(base) + 1.0, -np.inf).astype(np.float32)
+    x[1] = -np.inf
+    x[2, ::7] = 2.0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(432, 770), (540, 962)])
+def test_row_topk_blk_matches_plain_on_card(cuda_device, shape):
+    x = torch.from_numpy(_blk_case(*shape, seed=shape[0])).to(cuda_device)
+    for m in (6, 16, 19):
+        pv, pi = T.select_m(x, m)
+        for blk in (8, 32, 64):
+            kv, ki = T.row_topk_blk(x, m, blk)
+            assert torch.equal(kv, pv) and torch.equal(ki, pi), (m, blk)

@@ -38,11 +38,13 @@ BLOB_KEYS = ("pos", "field_pos", "color", "center", "circ", "score", "valid", "c
 
 
 def full_step(bm_cfg: BlobMachineConfig, det_cfg: DetectorConfig, raw, packed_cam,
-              colors7, tracked, params, rs_grid, colors7_ref=None, marks=None):
+              colors7, tracked, params, rs_grid=None, colors7_ref=None, marks=None):
     """Blob machine + hypothesis search (+ on-device finishing when
     ``marks`` is given): (blobs, det) or (blobs, det, fin), all tensors on
-    the input's device."""
-    blobs = blob_machine(bm_cfg, raw, params["min_circularity"], rs_grid)
+    the input's device. Without ``rs_grid`` the frame is resampled in line
+    (the camera projection per flat pixel, kernel E2/E3)."""
+    blobs = blob_machine(bm_cfg, raw, packed_cam, params["max_bot_height"],
+                         params["min_circularity"], rs_grid=rs_grid)
     det = detect(det_cfg, blobs, tracked, colors7[:6], packed_cam, params)
     det["bot_id_est"] = estimate_bot_ids(det, blobs["color"], colors7)
     out_blobs = {k: blobs[k] for k in BLOB_KEYS}

@@ -1,5 +1,6 @@
-// Masked top-m selections: per-row top-m of a score map, and the fused
-// query -> blob distance test + top-m.
+// Masked top-m selections: per-row top-m of a score map (one block per row,
+// B3; or blk rows per block, E5), and the fused query -> blob distance
+// test + top-m.
 //
 // Replaces vision_processor_tpu/ops/topk.py:_row_topk_kernel (row_topk)
 // and :_query_topk_kernel (query_select_topk). Both TPU kernels keep a
@@ -133,6 +134,64 @@ __global__ void query_topk_kernel(const float* __restrict__ q,
   select_m(cur, K, m, vals + (size_t)qi * m, idx + (size_t)qi * m);
 }
 
+// Replaces experiments/rowtopk_blk.py:row_topk_blk (E5): B3's function
+// with blk rows per block, one warp per row (min(blk, 32) warps a block,
+// each taking every nw-th row of the block's blk). The TPU experiment
+// swept the rows per block to amortise the per-block dispatch; here the
+// same sweep sets how many rows share one block's launch and residency.
+// A warp keeps no copy of its row: pass j scans the row (from L1/L2) for
+// the best element strictly after pass j-1's winner in the (value
+// descending, index ascending) order, which is the element _select_m's
+// masking leaves as the maximum. Once a pass finds only -inf, the row is
+// exhausted and every later slot is (-inf, 0), as _select_m's are (all
+// lanes -inf, the lowest index wins). Bound: latency, as B3's.
+__global__ void row_topk_blk_kernel(const float* __restrict__ x, int R, int L,
+                                    int m, int blk, float* __restrict__ vals,
+                                    int* __restrict__ idx) {
+  int warp = threadIdx.x >> 5;
+  int lane = threadIdx.x & 31;
+  int nw = blockDim.x >> 5;
+  for (int rr = warp; rr < blk; rr += nw) {
+    long long row = (long long)blockIdx.x * blk + rr;
+    if (row >= R) return;
+    const float* xr = x + row * L;
+    float pv = CUDART_INF_F;  // the previous winner; +inf, -1: none yet
+    int pi = -1;
+    bool exhausted = false;
+    for (int j = 0; j < m; ++j) {
+      float bv = -CUDART_INF_F;
+      int bi = kNoIndex;
+      if (!exhausted) {
+        for (int k = lane; k < L; k += 32) {
+          float v = __ldg(xr + k);
+          bool after = v < pv || (v == pv && k > pi);
+          if (after && better(v, k, bv, bi)) {
+            bv = v;
+            bi = k;
+          }
+        }
+        for (int off = 16; off > 0; off >>= 1) {
+          float ov = __shfl_down_sync(0xffffffffu, bv, off);
+          int oi = __shfl_down_sync(0xffffffffu, bi, off);
+          if (better(ov, oi, bv, bi)) {
+            bv = ov;
+            bi = oi;
+          }
+        }
+        bv = __shfl_sync(0xffffffffu, bv, 0);
+        bi = __shfl_sync(0xffffffffu, bi, 0);
+        exhausted = bv == -CUDART_INF_F;
+      }
+      if (lane == 0) {
+        vals[row * m + j] = exhausted ? -CUDART_INF_F : bv;
+        idx[row * m + j] = exhausted ? 0 : bi;
+      }
+      pv = bv;
+      pi = bi;
+    }
+  }
+}
+
 cudaError_t allow_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -163,6 +222,18 @@ extern "C" int vp_query_topk(const float* q, const float* r2, const float* b,
   if (Q > 0 && m > 0) {
     query_topk_kernel<<<Q, kThreads, smem, (cudaStream_t)stream>>>(
         q, r2, b, rank, K, m, by_rank, vals, idx);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vp_row_topk_blk(const float* x, int R, int L, int m, int blk,
+                               float* vals, int* idx, void* stream) {
+  if (blk < 1) return (int)cudaErrorInvalidValue;
+  if (R > 0 && m > 0) {
+    int warps = blk < 32 ? blk : 32;
+    long long blocks = ((long long)R + blk - 1) / blk;
+    row_topk_blk_kernel<<<(unsigned)blocks, 32 * warps, 0, (cudaStream_t)stream>>>(
+        x, R, L, m, blk, vals, idx);
   }
   return (int)cudaGetLastError();
 }

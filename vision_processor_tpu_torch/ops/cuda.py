@@ -11,9 +11,10 @@ Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises :class:`KernelError` on
 anything but 0, as the build does when a kernel cannot be compiled or
 loaded. Each wrapper (ops/warp.py, ops/blob_fused.py, ops/topk.py,
-ops/gather_corners.py, ops/combo_fused.py, ops/corner_stack.py) counts its
-own launches in :data:`LAUNCHES`, so a caller can show that a run went
-through the kernels.
+ops/gather_corners.py, ops/combo_fused.py, ops/corner_stack.py,
+ops/resample_packed.py, ops/band_warp.py) counts its own launches in
+:data:`LAUNCHES`, so a caller can show that a run went through the
+kernels.
 """
 from __future__ import annotations
 
@@ -47,6 +48,9 @@ LAUNCHES: dict[str, int] = {
     "circularity_fused": 0,
     "combo_chain": 0,
     "corner_stack": 0,
+    "resample_packed": 0,
+    "band_warp": 0,
+    "row_topk_blk": 0,
 }
 
 _lock = threading.Lock()
@@ -77,6 +81,12 @@ _SIGNATURES = {
     "vp_combo_chain": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     # src, mode, H, W, out, stream
     "vp_corner_stack": [_P, _I, _I, _I, _P, _P],
+    # src, mode, fmt, H, W, px, py, pstride, n, out, stream
+    "vp_resample_packed": [_P, _I, _I, _I, _I, _P, _P, _I, _L, _P, _P],
+    # src, pos, r0, out, ch, R, C, n_out, win, stream
+    "vp_band_warp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, R, L, m, blk, vals, idx, stream
+    "vp_row_topk_blk": [_P, _I, _I, _I, _I, _P, _P, _P],
 }
 
 

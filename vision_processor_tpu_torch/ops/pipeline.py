@@ -1,8 +1,12 @@
 """The blob machine: raw frame to compacted blobs (PyTorch port).
 
 Counterpart of vision_processor_tpu/ops/pipeline.py: Bayer split ->
-resample to the flat dRGB field grid (two-pass warp, kernel B1, or the
-cached-grid gather, kernel B7) -> extraction -> field mm positions. The
+resample to the flat dRGB field grid -> extraction -> field mm positions.
+The resample follows the JAX package's branch order: the exact per-plane
+resample (``exact_resample``, plain PyTorch), the two-pass warp of a cached
+warp grid (kernel B1), the gather of a cached gather grid (kernels E4 and
+B7), else in line: the per-pixel camera projection, then the packed
+sampler (kernel E2/E3, ops/resample_packed.py). The
 extraction is score-first by default: the per-pixel blob response (fused
 kernel B2 on the card, the eager chain on the CPU, as the JAX package uses
 Pallas on the TPU only), then exact masked compaction by score (row stage
@@ -20,6 +24,7 @@ import torch
 
 from . import blob as B
 from . import frame as F
+from .resample_packed import resample_packed
 
 
 @dataclass(frozen=True)
@@ -35,6 +40,9 @@ class BlobMachineConfig:
     sat_radius: int
     disc_radius: int
     max_blobs: int = 2000
+    # exact per-plane quarter-pixel bilinear (16 gathers) vs the packed
+    # single-cell sampler (<= 0.25 px boundary approximation)
+    exact_resample: bool = False
     # "gather": cached-grid gather; "warp": two-pass separable warp
     # (requires ops.warp.warp_fits on the geometry)
     resample_mode: str = "gather"
@@ -127,25 +135,41 @@ def circularity_map(cfg: BlobMachineConfig, flat: torch.Tensor) -> torch.Tensor:
     )
 
 
-def blob_machine(cfg: BlobMachineConfig, raw: torch.Tensor, circ_threshold,
-                 rs_grid: dict, field_scale=None, field_offset=None) -> dict:
+def resample_frame(cfg: BlobMachineConfig, raw: torch.Tensor, packed_cam, max_bot_height,
+                   field_scale, field_offset, rs_grid=None) -> torch.Tensor:
+    """The raw frame on the flat grid (Hf, Wf, 3) dRGB, in the JAX package's
+    branch order: exact, warp grid ("pos1"), gather grid, in line."""
+    if cfg.exact_resample:
+        return F.resample_flat(F.raw2quad(raw, cfg.fmt), packed_cam, max_bot_height,
+                               field_scale, field_offset, cfg.flat_shape, cfg.fmt)
+    if rs_grid is not None and "pos1" in rs_grid:
+        from . import warp as W
+
+        return W.resample_flat_warp(raw, rs_grid, cfg.fmt, cfg.flat_shape,
+                                    cfg.plane_shape)
+    if rs_grid is not None:
+        return F.resample_flat_grid_raw(raw, rs_grid, cfg.fmt)
+    img = F.flat_image_points(packed_cam, max_bot_height, field_scale, field_offset,
+                              cfg.flat_shape)
+    return resample_packed(raw, img[..., 0], img[..., 1], cfg.fmt)
+
+
+def blob_machine(cfg: BlobMachineConfig, raw: torch.Tensor, packed_cam, max_bot_height,
+                 circ_threshold, field_scale=None, field_offset=None,
+                 rs_grid: dict | None = None) -> dict:
     """Full frame -> blobs. Returns the blob slot dict; positions in field
-    mm are added as ``field_pos``. ``rs_grid`` is the precomputed sampling
-    geometry (``cfg.make_resample_grid``): a warp grid ("pos1" key) or a
-    gather grid. ``field_scale`` / ``field_offset`` default to the config's
-    values; a camera batch passes each camera's own, as the JAX package's
-    blob_machine takes them."""
+    mm are added as ``field_pos``. ``rs_grid`` is the optional precomputed
+    sampling geometry (``cfg.make_resample_grid``): a warp grid ("pos1"
+    key) or a gather grid; without it the frame is resampled in line from
+    ``packed_cam`` and ``max_bot_height``. ``field_scale`` /
+    ``field_offset`` default to the config's values; a camera batch passes
+    each camera's own."""
     if field_scale is None:
         field_scale = cfg.field_scale
     if field_offset is None:
         field_offset = cfg.field_offset
-    if "pos1" in rs_grid:
-        from . import warp as W
-
-        flat = W.resample_flat_warp(raw, rs_grid, cfg.fmt, cfg.flat_shape,
-                                    cfg.plane_shape)
-    else:
-        flat = F.resample_flat_grid_raw(raw, rs_grid, cfg.fmt)
+    flat = resample_frame(cfg, raw, packed_cam, max_bot_height, field_scale, field_offset,
+                          rs_grid)
 
     if score_first():
         ms, circ, mean, count = blob_response_map(cfg, flat, circ_threshold)
@@ -157,3 +181,21 @@ def blob_machine(cfg: BlobMachineConfig, raw: torch.Tensor, circ_threshold,
     offset = torch.as_tensor(field_offset, dtype=torch.float32, device=flat.device)
     blobs["field_pos"] = blobs["pos"] * field_scale + offset
     return blobs
+
+
+class BlobMachine:
+    """The blob machine for a fixed geometry/config on one device, resampled
+    in line (or exactly, with ``cfg.exact_resample``) from the camera
+    parameters of each call."""
+
+    def __init__(self, cfg: BlobMachineConfig, device="cuda"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+
+    def __call__(self, raw, packed_cam, max_bot_height, circ_threshold) -> dict:
+        if tuple(raw.shape) != tuple(self.cfg.raw_shape):
+            raise ValueError(f"raw shape {tuple(raw.shape)} != configured "
+                             f"{self.cfg.raw_shape}")
+        f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=self.device)  # noqa: E731
+        return blob_machine(self.cfg, torch.as_tensor(raw, device=self.device),
+                            f32(packed_cam), f32(max_bot_height), f32(circ_threshold))

@@ -1,4 +1,4 @@
-"""Masked top-m selections (kernels B3 and B4).
+"""Masked top-m selections (kernels B3, B4 and E5).
 
 Counterpart of vision_processor_tpu/ops/topk.py. ``row_topk`` (per-row
 top-m of a -inf-masked score map, the row stage of blob compaction) and
@@ -12,7 +12,9 @@ like the Pallas ``_select_m``, so exhausted slots repeat index 0; validity
 MUST be derived from the values (> -inf), never from the indices. The
 plain versions used for CPU tensors are the JAX package's own CPU paths:
 ``lax.top_k`` semantics (a stable descending sort) for the rows and the
-iterative argmax for the queries.
+iterative argmax for the queries. ``row_topk_blk`` (kernel E5, B3 at a
+swept number of rows per block, experiments/rowtopk_blk.py) is on no
+production path; its plain version is the iterative argmax.
 """
 from __future__ import annotations
 
@@ -58,6 +60,29 @@ def select_m(score: torch.Tensor, m: int):
         idxs.append(i.to(torch.int32))
         cur = torch.where(iota == i[..., None], float("-inf"), cur)
     return torch.stack(vals, dim=-1), torch.stack(idxs, dim=-1)
+
+
+def row_topk_blk(x: torch.Tensor, m: int, blk: int):
+    """Top-m of each row of ``x`` (R, L) f32 with ``blk`` rows per block
+    (kernel E5, the contract of experiments/rowtopk_blk.py
+    ``row_topk_blk``): (values, indices), both (R, m). B3's function with
+    ``_select_m``'s exhausted slots, (-inf, 0); ``blk`` sets only how the
+    kernel's launch is cut. The plain version is ``select_m``."""
+    if blk < 1:
+        raise ValueError(f"row_topk_blk: blk {blk} must be positive")
+    if not x.is_cuda:
+        return select_m(x, m)
+    cuda.require(x, "x", torch.float32, 2)
+    r, l = x.shape
+    if l < 1 or m < 1:
+        raise ValueError(f"row_topk_blk: empty selection {tuple(x.shape)}, m={m}")
+    vals = torch.empty((r, m), dtype=torch.float32, device=x.device)
+    idx = torch.empty((r, m), dtype=torch.int32, device=x.device)
+    rc = cuda.lib().vp_row_topk_blk(x.data_ptr(), r, l, m, blk, vals.data_ptr(),
+                                    idx.data_ptr(), cuda.stream(x))
+    cuda.check(rc, "row_topk_blk")
+    cuda.LAUNCHES["row_topk_blk"] += 1
+    return vals, idx
 
 
 def _query_scores(query_xy, radius2, blob_xy, rank, by_rank: bool):

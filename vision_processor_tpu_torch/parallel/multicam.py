@@ -12,13 +12,15 @@ clipping NMS, the ball clip, the id estimate folded over the camera axis)
 and, with field markings, the on-device finisher.
 
 ``resample_grids`` is the JAX package's ``resample_grids_traced``
-(nothing is traced here). Every step needs the cached sampling grids: the
-in-line projection resample the JAX package takes without them
-(``resample_flat_packed``) is not ported yet (ROADMAP.md, queue A1).
+(nothing is traced here). Every step takes the cached sampling grids
+(``rs_grids``, from ``make_resample_grids``) or, with ``rs_grids=None``,
+resamples each camera in line: the camera projection per flat pixel, then
+the packed sampler (kernel E2/E3), as the JAX package does without grids.
 
 The mesh part (``make_camera_mesh``, ``sharded_step``, ``sharded_rollout``:
 ``shard_map`` with an ``all_gather`` of the detection summaries) is a later
-slice over ``torch.distributed`` on 4 cards (ROADMAP.md, A4).
+slice over ``torch.distributed`` on 4 cards (ROADMAP.md, A4); its
+per-device program is this in-line path.
 """
 from __future__ import annotations
 
@@ -34,8 +36,6 @@ from ..models.device_finish import finish_on_device_batched, stack_finish_params
 from ..ops.pipeline import BlobMachineConfig, blob_machine
 
 _INF = float("inf")
-_ROADMAP_INLINE = ("ROADMAP.md, 'Port: the in-line projection resample "
-                   "(resample_flat_packed, kernels E2/E3)'")
 
 # Tunables that may differ between the cameras of one fleet: the reference
 # gives every camera its own config (reference src/Resources.cpp:188-214).
@@ -86,13 +86,11 @@ def _single_cam_step(cfg: MultiCamConfig, raw, packed_cam, field_scale, field_of
 
     ``finalize=False`` returns ``(blobs, det)`` with the detections before
     the clipping NMS and without the id estimate or summary: callers
-    stacking several cameras complete them with ``finalize_batched``."""
-    if rs_grid is None:
-        raise NotImplementedError(
-            f"the in-line projection resample is not ported yet ({_ROADMAP_INLINE}); "
-            f"pass the cached grid (make_resample_grids)")
-    blobs = blob_machine(cfg.bm, raw, params["min_circularity"], rs_grid,
-                         field_scale=field_scale, field_offset=field_offset)
+    stacking several cameras complete them with ``finalize_batched``.
+    Without ``rs_grid`` the frame is resampled in line."""
+    blobs = blob_machine(cfg.bm, raw, packed_cam, params["max_bot_height"],
+                         params["min_circularity"], field_scale=field_scale,
+                         field_offset=field_offset, rs_grid=rs_grid)
     det = detect(cfg.det, blobs, tracked, colors7[:6], packed_cam, params,
                  with_nms=finalize)
     out_blobs = {k: blobs[k]
@@ -251,7 +249,8 @@ def batched_step(cfg: MultiCamConfig):
     Inputs carry a leading camera axis; the tracked prior is built from the
     previous frame-set's summaries of all cameras and shared by every
     camera. ``rs_grids`` (from ``make_resample_grids``) replays the cached
-    projection geometry. Returns (blobs, det, summary), plus ``fin`` with
+    projection geometry; without it each camera is resampled in line.
+    Returns (blobs, det, summary), plus ``fin`` with
     ``colors7_refs``/``marks``."""
 
     def step(raws, packed_cams, field_scales, field_offsets, colors7, prev_summary,
