@@ -6,13 +6,16 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py            # the smoke
     python3 chip_smoke.py --profile  # + a torch.profiler breakdown of each slice
     python3 chip_smoke.py --out DIR  # long outputs (ptxas, profile, JSON) to DIR
+    python3 chip_smoke.py --before DIR  # + B2/B5 of the checkout DIR, timed in turns
+                                        #   with this checkout's
 
 Phases (any failure exits non-zero and prints no result line):
 
 1. environment: torch/CUDA versions, the card's name and power limit,
    nvcc, and which of protobuf / yaml / cv2 import;
-2. build: compiles the port's CUDA kernels (csrc/*.cu, one nvcc each, in
-   parallel) from the checkout;
+2. build: compiles the port's CUDA kernels from the checkout (csrc/*.cu,
+   one nvcc each, and csrc/blob_fused.cu once for each B2/B5 shape the
+   smoke calls, all in parallel);
 3. slice 1: one 1080p RGGB camera (camera 0 of the 4-camera bench rig, see
    ``bench_rig``) through ``Processor.device_step`` -> ``finish_frame`` at
    max_blobs 2000, 32 tracked slots, resampling factor 1.25, on-device
@@ -59,7 +62,13 @@ Phases (any failure exits non-zero and prints no result line):
    intermediates plus tie, exhausted-row, invalid-anchor, partial-block,
    edge, GRBG, BGR and packed-plane cases, with kernel, plain and
    library-call times and each kernel's bound; E1 and E5 beside B1 and B3
-   at the same shapes.
+   at the same shapes. B2 and B5 must be bit-equal to their plain versions
+   (B2's count equal to the plain count) on the slices' maps at both
+   resampling factors, at r = 2 and dr = o + r + 1, on 1x1, 3x200, 200x3
+   and 37x61 maps, on a constant map and above every threshold; both are
+   timed at both factors' shapes and at radii no slice uses, with their
+   ``-Xptxas -v`` lines, and with ``--before DIR`` beside the B2 and B5
+   of the checkout DIR (its own package and build), in turns.
 
 Each slice, and the contract run of E1 and E5, is driven with the launch
 counts set to 0 just before it and read just after. The last line is
@@ -134,21 +143,41 @@ def environment(torch) -> str:
 # ---------------------------------------------------------------------------
 
 
+# the shapes of B2 (o, r, dr) and B5 (o, r, None) that the smoke calls:
+# the slices' radii at factor 1.25 and 1.0, and the edge cases of
+# _blob_cases
+BLOB_SHAPES = [(1, 4, 3), (2, 5, 4), (1, 2, 1), (1, 4, 6), (2, 5, 8),
+               (1, 4, None), (2, 5, None), (1, 2, None)]
+
+
 def build():
     phase("build")
+    from vision_processor_tpu_torch.ops import blob_fused as BF
     from vision_processor_tpu_torch.ops import cuda as K
 
     t0 = time.perf_counter()
+    BF.build_kernels(BLOB_SHAPES)  # with the one library: every nvcc at once
+    nvcc_s = K.BUILD_INFO["seconds"]
     K.lib()
     secs = time.perf_counter() - t0
     print(f"built {Path(K.BUILD_INFO['path']).name} from {len(K.sources())} sources "
-          f"in {secs:.1f} s (nvcc {K.BUILD_INFO.get('seconds', 0.0):.1f} s)")
+          f"and csrc/blob_fused.cu at {len(BLOB_SHAPES)} B2/B5 shapes in {secs:.1f} s "
+          f"(nvcc {nvcc_s:.1f} s)")
     ptxas = K.BUILD_INFO.get("ptxas", "")
     OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / "ptxas.txt").write_text(ptxas)
+    (OUT / "ptxas.txt").write_text("\n".join(
+        [ptxas, *(K.report(_blob_lib(*shape)) for shape in BLOB_SHAPES)]))
     for line in ptxas.splitlines():
         if "registers" in line or "spill" in line.lower() or line.startswith("=="):
             print("ptxas:", line.strip())
+
+
+def _blob_lib(o, r, dr=None) -> Path:
+    """The library of B2 (``dr`` given) or B5 built for these radii."""
+    from vision_processor_tpu_torch.ops import blob_fused as BF
+    from vision_processor_tpu_torch.ops import cuda as K
+
+    return K.shaped_target("blob_fused.cu", BF.kernel_defines(o, r, dr))[0]
 
 
 # ---------------------------------------------------------------------------
@@ -1033,39 +1062,185 @@ def _check_b1(torch, calls):
                    bound(n_bytes, n_ops), t_l)
 
 
-def _check_b2(torch, calls):
+def load_checkout(root: Path, name: str):
+    """The package vision_processor_tpu_torch of the checkout at ``root``,
+    imported as ``name`` beside this checkout's: its own modules, kernel
+    build (under ``root/build/``) and launch counts."""
+    import importlib.util
+
+    pkg = root / "vision_processor_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    if spec is None:
+        fail(f"no vision_processor_tpu_torch package in {root}")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def before_kernels(root: Path) -> dict:
+    """B2 and B5 of the checkout at ``root``, through its own wrappers:
+    {"B2": blob_response_fused, "B5": circularity_fused, "cuda": its
+    ops.cuda, "root": ``root`` as given}."""
+    import importlib
+
+    name = load_checkout(root.resolve(), "vptpu_before").__name__
+    bf = importlib.import_module(f"{name}.ops.blob_fused")
+    return {"B2": bf.blob_response_fused, "B5": bf.circularity_fused,
+            "cuda": importlib.import_module(f"{name}.ops.cuda"), "root": str(root)}
+
+
+def _ptxas_of(o, r, dr=None) -> str:
+    """The -Xptxas -v lines (registers, stack, spills) of B2 (``dr``
+    given) or B5 built for these radii."""
+    from vision_processor_tpu_torch.ops import cuda as K
+
+    keep = [ln.replace("ptxas info    :", "").strip()
+            for ln in K.report(_blob_lib(o, r, dr)).splitlines()
+            if "stack frame" in ln or "registers" in ln]
+    return "; ".join(keep) or "not in the build's ptxas report"
+
+
+def _blob_cases(torch, flat):
+    """B2 and B5 beyond the slices' inputs: r = 2, dr = o + r + 1, maps
+    smaller than a tile or off the tile grid, a constant map (every
+    local-max test ties), a threshold above every value. Yields (label,
+    flat, th, o, r, dr)."""
+    dev = flat.device
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def th(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    yield "r=2", flat, th(50.0), 1, 2, 1
+    yield "dr=o+r+1", flat, th(300.0), 1, 4, 6
+    yield "dr=o+r+1 (factor 1.0 radii)", flat, th(300.0), 2, 5, 8
+    for h, w in ((1, 1), (3, 200), (200, 3), (37, 61)):
+        small = torch.rand((h, w, 3), generator=g, device=dev) * 255.0
+        for o, r, dr in ((1, 4, 3), (2, 5, 4), (1, 2, 1)):
+            yield f"{h}x{w} o={o} r={r} dr={dr}", small, th(50.0), o, r, dr
+    const = torch.full((45, 70, 3), 100.0, device=dev)
+    yield "constant map, th 0 (all kept)", const, th(0.0), 1, 4, 3
+    yield "constant map, th 1 (none kept)", const, th(1.0), 1, 4, 3
+    yield "threshold above every value", flat, th(3e38), 1, 4, 3
+
+
+def _b2_equal(torch, fused, flat, th, o, r, dr) -> tuple[bool, int, float]:
+    """(bit-equal to the plain version with the count equal, count, max
+    abs err over circ, finite scores and means)."""
+    import vision_processor_tpu_torch.ops.blob_fused as BF
+
+    ms_k, circ_k, means_k, n_k = fused(flat, th, o, r, dr)
+    ms_p, circ_p, means_p = BF._blob_response_fused_plain(flat, th, o, r, dr)
+    n_p = int((ms_p > float("-inf")).sum())
+    fin = torch.isfinite(ms_p)
+    same = (torch.equal(circ_k, circ_p) and torch.equal(torch.isfinite(ms_k), fin)
+            and torch.equal(ms_k, ms_p) and all(torch.equal(a, b)
+                                                for a, b in zip(means_k, means_p))
+            and int(n_k) == n_p)
+    errs = [float((circ_k - circ_p).abs().max())] + [
+        float((a - b).abs().max()) for a, b in zip(means_k, means_p)]
+    if bool(fin.any()) and torch.equal(torch.isfinite(ms_k), fin):
+        errs.append(float((ms_k - ms_p)[fin].abs().max()))
+    return same, int(n_k), max(errs) if flat.numel() else 0.0
+
+
+def events_per_call(torch, fn, reps: int = 10) -> float:
+    """Device events (kernels, copies, memsets) per call of fn, counted as
+    the slices' profiles count them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type.name == "CUDA") / reps
+
+
+def _before_after(torch, new_fn, old_fn):
+    """Busy and span of this checkout's kernel and the other's in turns
+    (old, new, new, old); returns (new, old), each the mean of its two
+    readings."""
+    t_o1 = time_fn(torch, old_fn)
+    t_n1 = time_fn(torch, new_fn)
+    t_n2 = time_fn(torch, new_fn)
+    t_o2 = time_fn(torch, old_fn)
+    mean = lambda a, b: ((a[0] + b[0]) / 2, (a[1] + b[1]) / 2)  # noqa: E731
+    return mean(t_n1, t_n2), mean(t_o1, t_o2)
+
+
+def _time_blob(torch, fn, old_fn, before):
+    """(kernel time, the other checkout's time or None): in turns with it
+    where ``--before`` gave one."""
+    if before is None:
+        return time_fn(torch, fn), None
+    return _before_after(torch, fn, old_fn)
+
+
+def _before_text(t_old, before) -> str:
+    return "" if t_old is None else f"; checkout {before['root']} {_fmt(t_old)}"
+
+
+def _check_b2(torch, calls, calls_f1, before):
+    """Bit-equality with the plain version (circ, scores, means, mask and
+    count) on slice 1's and slice 4's factor-1.0 inputs and the edge cases;
+    times at both factors' shapes and at radii no slice uses, beside the
+    other checkout's B2 where ``before`` has it."""
     import vision_processor_tpu_torch.ops.blob_fused as BF
 
     fused = BF.blob_response_fused.__wrapped__
-    (flat, th, o, r, dr), _ = calls[0]
-    ms_k, circ_k, means_k, _ = fused(flat, th, o, r, dr)
-    ms_p, circ_p, means_p = BF._blob_response_fused_plain(flat, th, o, r, dr)
-    scale = float(circ_p.abs().max()) + 1.0
-    circ_rel = float((circ_k - circ_p).abs().max()) / scale
-    fin = torch.isfinite(ms_p)
-    mask_eq = bool(((ms_k > float("-inf")) == fin).all())
-    both = fin & torch.isfinite(ms_k)
-    ms_rel = float(((ms_k - ms_p).abs()[both] / (ms_p.abs()[both] + 1.0)).max()) \
-        if bool(both.any()) else 0.0
-    mean_err = max(float((a - b).abs().max()) for a, b in zip(means_k, means_p))
-    err = max(float((circ_k - circ_p).abs().max()), mean_err,
-              float((ms_k - ms_p).abs()[both].max()) if bool(both.any()) else 0.0)
-    t_k = time_fn(torch, lambda: fused(flat, th, o, r, dr))
-    t_p = time_fn(torch, lambda: BF._blob_response_fused_plain(flat, th, o, r, dr))
-    print(f"B2 blob_response_fused (flat {tuple(flat.shape)}, o={o} r={r} dr={dr}): "
-          f"circ rel err {circ_rel:.3g} (tol 1e-5), score rel err {ms_rel:.3g} "
-          f"(tol 1e-5), masks equal {mask_eq}, mean abs err {mean_err:.3g} "
-          f"(tol 1e-3); kernel {_fmt(t_k)} vs plain {_fmt(t_p)}; no library call")
-    if not (circ_rel <= 1e-5 and ms_rel <= 1e-5 and mask_eq and mean_err <= 1e-3):
-        fail("blob_response_fused disagrees with its plain version")
-    h, w = flat.shape[:2]
-    # per pixel, the TPU formulation's arithmetic: gradient dot 11, box rows
-    # and columns 2(r-2), quadrant min 6, local max 4, disc spans 6(4dr+1),
-    # squares 3, mean/var/sd 15, score and mask 5
-    ops_px = 11 + 2 * (r - 2) + 6 + 4 + 6 * (4 * dr + 1) + 3 + 15 + 5
-    return _result("blob_response_fused", "vision_processor_tpu_torch/csrc/blob_fused.cu",
-                   "vision_processor_tpu/ops/blob_pallas.py:102", err, t_k, t_p,
-                   bound(4 * h * w * (3 + 5), ops_px * h * w), None)
+    main_args = calls[0][0]
+    f1_args = calls_f1[0][0]
+    err = 0.0
+    labels = []
+    for label, *args in [("slice 1", *main_args), ("factor 1.0", *f1_args),
+                         *_blob_cases(torch, main_args[0])]:
+        same, n, e = _b2_equal(torch, fused, *args)
+        if not same:
+            fail(f"blob_response_fused ({label}) is not bit-equal to its plain version "
+                 f"(max abs err {e:.3g}) or its count differs")
+        err = max(err, e)
+        labels.append(f"{label}: {n}")
+    print(f"B2 blob_response_fused: bit-equal to its plain version (circ, scores, means, "
+          f"masks) with the count equal in {len(labels)} cases; kept pixels "
+          f"{'; '.join(labels)}")
+    flat, th, o, r, dr = main_args
+    events = {"this checkout": events_per_call(torch, lambda: fused(flat, th, o, r, dr))}
+    if before is not None:
+        events[before["root"]] = events_per_call(
+            torch, lambda: before["B2"](flat, th, o, r, dr))
+    print(f"B2 device events per call: {events}")
+    times = {}
+    other = (main_args[0], main_args[1], 1, 4, 6)  # dr = o + r + 1 on slice 1's map
+    for label, (flat, th, o, r, dr) in (("factor 1.25", main_args), ("factor 1.0", f1_args),
+                                        ("o=1 r=4 dr=6, no slice's radii", other)):
+        h, w = flat.shape[:2]
+        plan = BF.tile_plan(o, r, dr)
+        t_k, t_old = _time_blob(torch, lambda: fused(flat, th, o, r, dr),
+                                lambda: before["B2"](flat, th, o, r, dr), before)
+        t_p = time_fn(torch, lambda: BF._blob_response_fused_plain(flat, th, o, r, dr))
+        # per pixel, the TPU formulation's arithmetic: gradient dot 11, box
+        # rows and columns 2(r-2), quadrant min 6, local max 4, disc spans
+        # 6(4dr+1), squares 3, mean/var/sd 15, score and mask 5
+        ops_px = 11 + 2 * (r - 2) + 6 + 4 + 6 * (4 * dr + 1) + 3 + 15 + 5
+        bnd = bound(4 * h * w * (3 + 5) + 4, ops_px * h * w)
+        print(f"B2 {label} (flat {tuple(flat.shape)}, o={o} r={r} dr={dr}, tile "
+              f"{plan.tile_h}x{plan.tile_w}, {plan.smem_bytes} B shared): kernel "
+              f"{_fmt(t_k)}{_before_text(t_old, before)}; plain {_fmt(t_p)}; bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}); no library call")
+        print(f"B2 ptxas, o={o} r={r} dr={dr}: {_ptxas_of(o, r, dr)}")
+        times[label] = {"t_k": t_k, "t_p": t_p, "t_before": t_old, "bound": bnd,
+                        "tile": [plan.tile_h, plan.tile_w], "smem": plan.smem_bytes}
+    main = times["factor 1.25"]
+    res = _result("blob_response_fused", "vision_processor_tpu_torch/csrc/blob_fused.cu",
+                  "vision_processor_tpu/ops/blob_pallas.py:102", err, main["t_k"],
+                  main["t_p"], main["bound"], None)
+    res["times"] = times
+    res["events"] = events
+    return res
 
 
 def _check_b3(torch, calls):
@@ -1164,27 +1339,48 @@ def _check_b4(torch, calls):
                    bound(n_bytes, n_ops), None)
 
 
-def _check_b5(torch, calls):
+def _check_b5(torch, calls, calls_f1, before):
+    """Bit-equality with the plain version on slice 2's input, on the
+    factor-1.0 map at (2, 5) and on the edge cases; times at both factors'
+    shapes and at radii no slice uses, beside the other checkout's B5
+    where ``before`` has it."""
     import vision_processor_tpu_torch.ops.blob_fused as BF
 
     circ_fused = BF.circularity_fused.__wrapped__
     (flat, o, r), _ = calls[0]
-    got = circ_fused(flat, o, r)
-    want = BF._circularity_fused_plain(flat, o, r)
-    err = float((got - want).abs().max())
-    rel = err / (float(want.abs().max()) + 1.0)
-    t_k = time_fn(torch, lambda: circ_fused(flat, o, r))
-    t_p = time_fn(torch, lambda: BF._circularity_fused_plain(flat, o, r))
-    print(f"B5 circularity_fused (flat {tuple(flat.shape)}, o={o} r={r}): max abs err "
-          f"{err:.3g}, rel err {rel:.3g} (tol 1e-5); kernel {_fmt(t_k)} vs plain "
-          f"{_fmt(t_p)}; no library call")
-    if not rel <= 1e-5:
-        fail("circularity_fused disagrees with its plain version")
-    h, w = flat.shape[:2]
-    ops_px = 11 + 2 * (r - 2) + 6  # gradient dot, box rows and columns, quadrant min
-    return _result("circularity_fused", "vision_processor_tpu_torch/csrc/blob_fused.cu",
-                   "vision_processor_tpu/ops/blob_pallas.py:58", err, t_k, t_p,
-                   bound(4 * h * w * (3 + 1), ops_px * h * w), None)
+    flat_f1, _, o1, r1, _ = calls_f1[0][0]
+    n = 0
+    for label, ff, oo, rr in [("slice 2", flat, o, r), ("factor 1.0", flat_f1, o1, r1),
+                              *((lb, f, oo, rr) for lb, f, _, oo, rr, _ in
+                                _blob_cases(torch, flat))]:
+        if not torch.equal(circ_fused(ff, oo, rr), BF._circularity_fused_plain(ff, oo, rr)):
+            fail(f"circularity_fused ({label}) is not bit-equal to its plain version")
+        n += 1
+    print(f"B5 circularity_fused: bit-equal to its plain version in {n} cases "
+          f"(max abs err 0)")
+    times = {}
+    for label, (ff, oo, rr) in (("factor 1.25", (flat, o, r)), ("factor 1.0", (flat_f1, o1, r1)),
+                                ("o=1 r=2, no slice's radii", (flat, 1, 2))):
+        h, w = ff.shape[:2]
+        plan = BF.tile_plan(oo, rr)
+        t_k, t_old = _time_blob(torch, lambda: circ_fused(ff, oo, rr),
+                                lambda: before["B5"](ff, oo, rr), before)
+        t_p = time_fn(torch, lambda: BF._circularity_fused_plain(ff, oo, rr))
+        ops_px = 11 + 2 * (rr - 2) + 6  # gradient dot, box rows and columns, quadrant min
+        bnd = bound(4 * h * w * (3 + 1), ops_px * h * w)
+        print(f"B5 {label} (flat {tuple(ff.shape)}, o={oo} r={rr}, tile {plan.tile_h}x"
+              f"{plan.tile_w}, {plan.smem_bytes} B shared): kernel {_fmt(t_k)}"
+              f"{_before_text(t_old, before)}; plain {_fmt(t_p)}; bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}); no library call")
+        print(f"B5 ptxas, o={oo} r={rr}: {_ptxas_of(oo, rr)}")
+        times[label] = {"t_k": t_k, "t_p": t_p, "t_before": t_old, "bound": bnd,
+                        "tile": [plan.tile_h, plan.tile_w], "smem": plan.smem_bytes}
+    main = times["factor 1.25"]
+    res = _result("circularity_fused", "vision_processor_tpu_torch/csrc/blob_fused.cu",
+                  "vision_processor_tpu/ops/blob_pallas.py:58", 0.0, main["t_k"],
+                  main["t_p"], main["bound"], None)
+    res["times"] = times
+    return res
 
 
 def _check_b6(torch, calls):
@@ -1524,18 +1720,20 @@ def _check_e5(torch, contract):
 
 
 def check_kernels(torch, s1: dict, s2: dict, s3: dict, s4: dict, s4f1: dict,
-                  contracts: dict) -> list:
+                  contracts: dict, before) -> list:
     """Each kernel on the last frame's inputs of the slice whose path it
     belongs to: B1-B4 slice 1's, B5-B7 slice 2's, E4 slice 3's, E2/E3 slice
-    4's; E1 and E5 on their contract run's inputs."""
+    4's; E1 and E5 on their contract run's inputs; B2 and B5 also on slice
+    4's factor-1.0 map, beside the other checkout's where ``before`` has it."""
     phase("kernels vs plain")
     c1, c2, c3, c4 = s1["calls"], s2["calls"], s3["calls"], s4["calls"]
+    b2_f1 = s4f1["calls"]["blob_response_fused"]
     return [
         ("B1", _check_b1(torch, c1["band_pass"])),
-        ("B2", _check_b2(torch, c1["blob_response_fused"])),
+        ("B2", _check_b2(torch, c1["blob_response_fused"], b2_f1, before)),
         ("B3", _check_b3(torch, c1["row_topk"])),
         ("B4", _check_b4(torch, c1["query_select_topk"])),
-        ("B5", _check_b5(torch, c2["circularity_fused"])),
+        ("B5", _check_b5(torch, c2["circularity_fused"], b2_f1, before)),
         ("B6", _check_b6(torch, c2["combo_chain"])),
         ("B7", _check_b7(torch, c2["gather_corners"])),
         ("E1", _check_e1(torch, contracts)),
@@ -1550,6 +1748,9 @@ def main() -> None:
     parser = argparse.ArgumentParser(description="chip smoke of the PyTorch/CUDA port")
     parser.add_argument("--profile", action="store_true")
     parser.add_argument("--out", type=Path, default=OUT)
+    parser.add_argument("--before", type=Path, default=None,
+                        help="another checkout of the repository whose B2 and B5 "
+                             "are timed in turns with this one's")
     args = parser.parse_args()
     OUT = args.out.resolve()
 
@@ -1562,6 +1763,12 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this smoke runs only on a GPU")
     card = environment(torch)
     build()
+    before = None
+    if args.before:
+        phase(f"build: the checkout {args.before}")
+        before = before_kernels(args.before)
+        before["cuda"].lib()
+        print(f"built {before['cuda'].BUILD_INFO['path']}")
     recorder = Recorder()
     rig = bench_rig()
     s1 = run_slice(torch, recorder, rig, "slice 1", "auto", "warp", SLICE1_LAUNCHES)
@@ -1600,7 +1807,7 @@ def main() -> None:
                                        "frame-set")
         s4["profile"] = profile_frames(torch, s4["run"], STAGES_SLICE4, "slice 4",
                                        "frame-set")
-    results = check_kernels(torch, s1, s2, s3, s4, s4f1, contracts)
+    results = check_kernels(torch, s1, s2, s3, s4, s4f1, contracts, before)
     # E3 computes E2's function: one kernel, one measurement, two rows
     e2 = dict(results)["E2"]
     results.insert([row for row, _ in results].index("E4"),
@@ -1627,6 +1834,8 @@ def main() -> None:
         "e1_vs_b1": {"b1_busy_ms": dict(results)["E1"]["b1_same_shapes"][0],
                      "b1_ms": dict(results)["E1"]["b1_same_shapes"][1]},
         "e5_sweep": dict(results)["E5"]["sweep"],
+        "b2_b5_times": {row: dict(results)[row]["times"] for row in ("B2", "B5")},
+        "b2_events_per_call": dict(results)["B2"]["events"],
         "slices": {label: {k: v for k, v in s.items() if k not in skip}
                    for label, s in (("slice 1", s1), ("slice 2", s2), ("slice 3", s3),
                                     ("slice 3, warp", s3w), ("slice 4", s4),

@@ -33,10 +33,17 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture
-def cuda_device():
+@pytest.fixture(scope="module")
+def _card_kernels():
+    """On a card, B2 and B5 at every radius this file's card tests use,
+    built together before the first of them."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    BF.build_kernels([*CARD_RADII, *((o, r, None) for o, r, _ in CARD_RADII)])
+
+
+@pytest.fixture
+def cuda_device(_card_kernels):
     return torch.device("cuda")
 
 
@@ -163,14 +170,132 @@ def test_radius_helpers_match():
         assert BF.response_kernel_fits(o, r, dr) == JBP.response_kernel_fits(o, r, dr)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("o,r,dr", RADII)
-def test_fused_kernel_on_card(o, r, dr, cuda_device):
-    flat = torch.from_numpy(_flat(o + r, h=432, w=770)).to(cuda_device)
-    th = torch.tensor(300.0, device=cuda_device)
-    ms, circ, means, _ = BF.blob_response_fused(flat, th, o, r, dr)
+@pytest.mark.parametrize("o", range(1, 9))
+def test_tile_plan_fits_every_admitted_radius(o):
+    """Every (o, r, dr) with 2 <= r <= 16 and dr <= r that the gate admits
+    gets a B2 tile within 227 KB of shared memory, and the tile covers its
+    halo's reads: a window of tile + 2 (o + r + 1)."""
+    for r in range(2, 17):
+        for dr in range(1, r + 1):
+            assert BF.response_kernel_fits(o, r, dr)
+            plan = BF.tile_plan(o, r, dr)
+            assert plan.smem_bytes <= BF.SMEM_MAX
+            assert plan.smem_bytes == BF._smem_bytes(plan.tile_h, plan.tile_w, o, r, dr)
+            assert plan.halo == o + r + 1 >= dr
+            assert 1 <= plan.tile_h * plan.tile_w <= 1024
+            # the C entry's conditions: a power-of-two width, whole row groups
+            per = -(-plan.tile_h * plan.tile_w // 256)
+            assert plan.tile_w & (plan.tile_w - 1) == 0 and plan.tile_h % per == 0
+            if plan.smem_bytes > BF.SMEM_DEFAULT:
+                # opting in only where no tile of 256 pixels fits 48 KB
+                assert all(BF._smem_bytes(th, tw, o, r, dr) > BF.SMEM_DEFAULT
+                           for th, tw in BF._TILES if th * tw >= 256)
+
+
+def test_tile_plan_slice_radii_need_no_opt_in():
+    """The slices' radii, factor 1.25 and 1.0, fit the default 48 KB."""
+    assert BF.tile_plan(1, 4, 3) == (32, 32, 6, 47312)
+    assert BF.tile_plan(2, 5, 4) == (16, 32, 8, 39312)
+    for o, r, dr in RADII:
+        assert BF.tile_plan(o, r, dr).smem_bytes <= BF.SMEM_DEFAULT
+
+
+def test_tile_plan_refuses_past_227kb():
+    with pytest.raises(ValueError, match="227 KB"):
+        BF.tile_plan(8, 120, 100)
+    # the smallest tile past the limit, the largest within it
+    plan = BF.tile_plan(8, 40, 30)
+    assert plan.smem_bytes <= BF.SMEM_MAX < BF._smem_bytes(
+        *BF._TILES[BF._TILES.index((plan.tile_h, plan.tile_w)) - 1], 8, 40, 30)
+
+
+def test_each_shape_builds_its_own_kernel():
+    """B2 and B5 are built once per shape, the radii and the planned tile
+    as constants: each (o, r, dr) of B2 and (o, r) of B5 its own library,
+    the same shape always the same one, and the source left out of the
+    other kernels' library."""
+    from vision_processor_tpu_torch.ops import cuda
+
+    assert BF.kernel_defines(1, 4, 3) == {
+        "VP_O": 1, "VP_R": 4, "VP_DR": 3, "VP_TILE_H": 32, "VP_TILE_W": 32}
+    assert BF.kernel_defines(2, 5) == {"VP_O": 2, "VP_R": 5, "VP_TILE_H": 32, "VP_TILE_W": 32}
+    shapes = [(o, r, d) for o, r, dr in CARD_RADII for d in (dr, None)]
+    paths = [cuda.shaped_target("blob_fused.cu", BF.kernel_defines(*s))[0] for s in shapes]
+    assert len(set(paths)) == len(set(shapes))
+    assert paths == [cuda.shaped_target("blob_fused.cu", BF.kernel_defines(*s))[0]
+                     for s in shapes]
+    assert "blob_fused.cu" not in [p.name for p in cuda.sources()]
+    with pytest.raises(ValueError, match="227 KB"):
+        BF.kernel_defines(8, 120, 100)
+
+
+def test_count_is_the_kept_pixels_on_the_cpu():
+    flat = torch.from_numpy(_flat(2))
+    ms, _, _, count = BF.blob_response_fused(flat, 0.0, 1, 4, 3)
+    assert count.dtype == torch.int32 and count.dim() == 0
+    assert int(count) == int(torch.isfinite(ms).sum()) > 0
+
+
+# the card: B2 bit-equal to its plain version, count included
+CARD_RADII = RADII + [(1, 2, 1), (1, 4, 6), (2, 5, 8)]  # r = 2; dr = o + r + 1
+
+
+def _check_on_card(flat, th, o, r, dr):
+    from vision_processor_tpu_torch.ops import cuda
+
+    before = cuda.LAUNCHES["blob_response_fused"]
+    ms, circ, means, count = BF.blob_response_fused(flat, th, o, r, dr)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["blob_response_fused"] == before + 1
     p_ms, p_circ, p_means = BF._blob_response_fused_plain(flat, th, o, r, dr)
     assert torch.equal(circ, p_circ)
+    assert torch.equal(torch.isfinite(ms), torch.isfinite(p_ms))
     assert torch.equal(ms, p_ms)
     for a, b in zip(means, p_means):
         assert torch.equal(a, b)
+    assert count.dtype == torch.int32 and count.dim() == 0
+    assert int(count) == int((p_ms > float("-inf")).sum())
+    return int(count)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("o,r,dr", CARD_RADII)
+def test_fused_kernel_on_card(o, r, dr, cuda_device):
+    flat = torch.from_numpy(_flat(o + r, h=432, w=770)).to(cuda_device)
+    th = torch.tensor(300.0, device=cuda_device)
+    assert _check_on_card(flat, th, o, r, dr) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(1, 1), (3, 200), (200, 3), (37, 61)])
+@pytest.mark.parametrize("o,r,dr", [(1, 4, 3), (2, 5, 4), (1, 2, 1), (1, 4, 6)])
+def test_fused_kernel_odd_maps_on_card(h, w, o, r, dr, cuda_device):
+    """Maps smaller than a tile or its halo, edges off the tile grid."""
+    flat = torch.from_numpy(_flat(h + w, h=h, w=w)).to(cuda_device)
+    _check_on_card(flat, torch.tensor(50.0, device=cuda_device), o, r, dr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("o,r,dr", [(1, 4, 3), (2, 5, 4), (3, 5, 2)])
+def test_fused_kernels_unaligned_map_on_card(o, r, dr, cuda_device):
+    """A map whose first element is not 16-byte aligned (a view one float
+    into its storage), as a caller's slice of a larger buffer gives."""
+    h, w = 70, 300
+    buf = torch.from_numpy(_flat(5, h=1, w=h * w + 1).reshape(-1)).to(cuda_device)
+    flat = buf[1: 1 + h * w * 3].view(h, w, 3)
+    assert flat.data_ptr() % 16 != 0
+    _check_on_card(flat, torch.tensor(50.0, device=cuda_device), o, r, dr)
+    assert torch.equal(BF.circularity_fused(flat, o, r),
+                       BF._circularity_fused_plain(flat, o, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("o,r,dr", [(1, 4, 3), (2, 5, 4)])
+def test_fused_kernel_ties_and_empty_on_card(o, r, dr, cuda_device):
+    """A constant map ties every local-max test: all kept at threshold 0,
+    none at 1; a threshold above every value keeps none."""
+    flat = torch.full((45, 70, 3), 100.0, device=cuda_device)
+    assert _check_on_card(flat, torch.tensor(0.0, device=cuda_device), o, r, dr) == 45 * 70
+    assert _check_on_card(flat, torch.tensor(1.0, device=cuda_device), o, r, dr) == 0
+    flat = torch.from_numpy(_flat(9, h=432, w=770)).to(cuda_device)
+    assert _check_on_card(flat, torch.tensor(3e38, device=cuda_device), o, r, dr) == 0

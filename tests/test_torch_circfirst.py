@@ -45,10 +45,17 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture
-def cuda_device():
+@pytest.fixture(scope="module")
+def _card_kernels():
+    """On a card, B5 at every radius this file's card tests use, built
+    together before the first of them."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    BF.build_kernels([(o, r, None) for o, r in CARD_RADII])
+
+
+@pytest.fixture
+def cuda_device(_card_kernels):
     return torch.device("cuda")
 
 
@@ -301,12 +308,48 @@ def test_circfirst_gather_slice_matches_jax(turned_rig, monkeypatch):
         assert t_tr.valid.sum() == 2
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("o,r", [(1, 4), (2, 5)])
-def test_circularity_kernel_on_card(o, r, cuda_device):
-    flat = torch.from_numpy(_flat(7, 432, 770)).to(cuda_device)
+@pytest.mark.parametrize("o", range(1, 9))
+def test_circularity_tile_plan_fits(o):
+    """Every (o, r) with 2 <= r <= 16 gets a B5 tile within 227 KB of
+    shared memory, its halo o + r."""
+    for r in range(2, 17):
+        plan = BF.tile_plan(o, r)
+        assert plan.smem_bytes == BF._smem_bytes(plan.tile_h, plan.tile_w, o, r, None)
+        assert plan.smem_bytes <= BF.SMEM_MAX
+        assert plan.halo == o + r
+        assert 1 <= plan.tile_h * plan.tile_w <= 1024
+
+
+def test_circularity_tile_plan_slice_radii():
+    """Factor 1.25 and 1.0 get a 32 x 32 tile within the default 48 KB."""
+    assert BF.tile_plan(1, 4) == (32, 32, 5, 33648)
+    assert BF.tile_plan(2, 5) == (32, 32, 7, 39000)
+    with pytest.raises(ValueError, match="227 KB"):
+        BF.tile_plan(8, 200)
+
+
+def _circ_on_card(flat, o, r):
     before = cuda.LAUNCHES["circularity_fused"]
     got = BF.circularity_fused(flat, o, r)
     torch.cuda.synchronize()
     assert cuda.LAUNCHES["circularity_fused"] == before + 1
     assert torch.equal(got, BF._circularity_fused_plain(flat, o, r))
+
+
+CARD_RADII = [(1, 4), (2, 5), (1, 2), (3, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("o,r", CARD_RADII)
+def test_circularity_kernel_on_card(o, r, cuda_device):
+    _circ_on_card(torch.from_numpy(_flat(7, 432, 770)).to(cuda_device), o, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(1, 1), (3, 200), (200, 3), (37, 61)])
+@pytest.mark.parametrize("o,r", [(1, 4), (2, 5), (1, 2)])
+def test_circularity_kernel_odd_maps_on_card(h, w, o, r, cuda_device):
+    """Maps smaller than a tile or its halo, edges off the tile grid, and a
+    constant map."""
+    _circ_on_card(torch.from_numpy(_flat(h * w, h, w)).to(cuda_device), o, r)
+    _circ_on_card(torch.full((h, w, 3), 7.0, device=cuda_device), o, r)

@@ -1,0 +1,45 @@
+"""chip_smoke.py's loader of another checkout (``--before DIR``), on the CPU.
+
+The smoke times B2 and B5 of another checkout through that checkout's own
+package, imported under another name. Here the checkout is this one: its
+package, loaded so, must be a second copy (its own modules and launch
+counts) whose B2 and B5 give what this package's give, bit for bit.
+"""
+from __future__ import annotations
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from vision_processor_tpu_torch.ops import blob_fused as BF
+from vision_processor_tpu_torch.ops import cuda
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_before_kernels_are_a_second_copy(smoke):
+    before = smoke.before_kernels(ROOT)
+    assert before["root"] == str(ROOT)
+    assert before["cuda"] is not cuda and before["cuda"].LAUNCHES is not cuda.LAUNCHES
+    assert before["B2"] is not BF.blob_response_fused
+    assert before["B2"].__module__ == "vptpu_before.ops.blob_fused"
+
+    rng = np.random.default_rng(4)
+    flat = torch.from_numpy(rng.uniform(0, 255, (37, 61, 3)).astype(np.float32))
+    got = before["B2"](flat, 50.0, 1, 4, 3)
+    want = BF.blob_response_fused(flat, 50.0, 1, 4, 3)
+    for a, b in zip((got[0], got[1], *got[2], got[3]), (want[0], want[1], *want[2], want[3])):
+        assert torch.equal(a, b)
+    assert torch.equal(before["B5"](flat, 2, 5), BF.circularity_fused(flat, 2, 5))

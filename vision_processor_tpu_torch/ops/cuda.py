@@ -5,7 +5,11 @@ shared library with a plain C interface, loaded with ``ctypes``: the
 sources compile in parallel, one ``nvcc`` each, from the repository's
 sources alone, in seconds. The first launch in a process builds the
 library into ``build/vptpu_torch_kernels/`` (a directory that
-``.gitignore`` lists), keyed by a hash of the sources.
+``.gitignore`` lists), keyed by a hash of the sources, with the
+``-Xptxas -v`` report beside it. A source in :data:`SHAPED` is built
+instead into one library per call shape, the shape's constants given as
+``-D`` macros (:func:`shaped_lib`), on the shape's first call or ahead
+of it (:func:`build`).
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises :class:`KernelError` on
@@ -64,18 +68,12 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # src, pos, out, ch, R, C, n_out, stream
     "vp_band_pass": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # flat, H, W, o, r, inv_rr, n_spans, dys, hws, inv_n, th,
-    # circ_ext, ms, circ, m0, m1, m2, stream
-    "vp_blob_response": [_P, _I, _I, _I, _I, _F, _I, _P, _P, _F, _P,
-                         _P, _P, _P, _P, _P, _P, _P],
     # x, R, L, m, vals, idx, stream
     "vp_row_topk": [_P, _I, _I, _I, _P, _P, _P],
     # q, r2, b, rank, Q, K, m, by_rank, vals, idx, stream
     "vp_query_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     # stack, idx, n_out, out, stream
     "vp_gather_corners": [_P, _P, _L, _P, _P],
-    # flat, H, W, o, r, inv_rr, circ, stream
-    "vp_circularity": [_P, _I, _I, _I, _I, _F, _P, _P],
     # maps, A, C, anchor_pos, ring_count, anchor_valid, combo_max, pattern,
     # outf, outi, stream
     "vp_combo_chain": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
@@ -88,6 +86,19 @@ _SIGNATURES = {
     # x, R, L, m, blk, vals, idx, stream
     "vp_row_topk_blk": [_P, _I, _I, _I, _I, _P, _P, _P],
 }
+# sources built once per call shape (ops/blob_fused.py kernel_defines),
+# and the entries their libraries may hold
+SHAPED = {
+    "blob_fused.cu": {
+        # flat, H, W, o, r, dr, tile_h, tile_w, smem, inv_rr, inv_n, th,
+        # ms, circ, m0, m1, m2, count, stream
+        "vp_blob_response": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P,
+                             _P, _P, _P, _P, _P, _P, _P],
+        # flat, H, W, o, r, tile_h, tile_w, smem, inv_rr, circ, stream
+        "vp_circularity": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P],
+    },
+}
+_shaped: dict = {}  # (source, defines) -> loaded library
 
 
 class KernelError(RuntimeError):
@@ -102,7 +113,8 @@ def reset_launches() -> None:
 
 
 def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+    """The sources of the one library that :func:`lib` loads."""
+    return sorted(p for p in CSRC.glob("*.cu") if p.name not in SHAPED)
 
 
 def _nvcc() -> str:
@@ -116,53 +128,102 @@ def _nvcc() -> str:
     raise KernelError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build() -> Path:
-    """Compile csrc/*.cu into the shared library (cached by source hash):
-    one nvcc per source, all started together, then one link."""
-    srcs = sources()
+def _target(srcs: list[Path], defines: tuple[str, ...] = ()):
+    """(library path, sources, -D flags): the path keyed by a hash of the
+    sources, the flags and the defines."""
     h = hashlib.sha256()
     for s in srcs:
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    out = BUILD_DIR / f"libvptpu_torch_kernels_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        BUILD_INFO.update(path=str(out), seconds=0.0, cached=True)
-        return out
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS + list(defines)).encode())
+    stem = srcs[0].stem if defines else "vptpu_torch_kernels"
+    return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so", srcs, defines
+
+
+def shaped_target(src: str, defines: dict):
+    """The target of ``csrc/<src>`` (a :data:`SHAPED` source) built with
+    ``defines``."""
+    flags = tuple(f"-D{k}={v}" for k, v in sorted(defines.items()))
+    return _target([CSRC / src], flags)
+
+
+def report(path: Path) -> str:
+    """The ``-Xptxas -v`` report of a built library."""
+    log = path.with_suffix(".ptxas.txt")
+    return log.read_text() if log.exists() else ""
+
+
+def _build(targets) -> float:
+    """Build every target not on disk yet: one nvcc per source of each, all
+    started together, then one link each, each library's ptxas report
+    beside it. Returns the seconds taken."""
+    todo = [t for t in targets if not t[0].exists()]
+    if not todo:
+        return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    jobs = [(out, s, defines, BUILD_DIR / f"{s.stem}.{out.stem}.{os.getpid()}.o")
+            for out, srcs, defines in todo for s in srcs]
     try:
         procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+            subprocess.Popen([nvcc, *NVCC_FLAGS, *defines, "-c", "-o", str(o), str(s)],
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for s, o in zip(srcs, objs)
+            for _, s, defines, o in jobs
         ]
-        logs, failed = [], []
-        for s, proc in zip(srcs, procs):
+        logs: dict = {out: [] for out, _, _ in todo}
+        failed = []
+        for (out, s, defines, _), proc in zip(jobs, procs):
             stdout, stderr = proc.communicate()
-            logs.append(f"== {s.name}\n{stdout}{stderr}")
+            name = " ".join([s.name, *defines])
+            logs[out].append(f"== {name}\n{stdout}{stderr}")
             if proc.returncode != 0:
-                failed.append(f"{s.name} ({proc.returncode})")
+                failed.append(f"{name} ({proc.returncode})")
         if failed:
-            raise KernelError(f"nvcc failed: {', '.join(failed)}\n" + "\n".join(logs))
-        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
-                              capture_output=True, text=True)
-        if link.returncode != 0:
-            raise KernelError(f"nvcc link failed ({link.returncode}):\n"
-                               f"{link.stdout}\n{link.stderr}")
+            raise KernelError(f"nvcc failed: {', '.join(failed)}\n"
+                              + "\n".join(ln for v in logs.values() for ln in v))
+        for out, _, _ in todo:
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            objs = [str(o) for o_out, _, _, o in jobs if o_out == out]
+            link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *objs],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                raise KernelError(f"nvcc link failed ({link.returncode}):\n"
+                                  f"{link.stdout}\n{link.stderr}")
+            out.with_suffix(".ptxas.txt").write_text("\n".join(logs[out]))
+            os.replace(tmp, out)
     finally:
-        for o in objs:
+        for *_, o in jobs:
             o.unlink(missing_ok=True)
-    os.replace(tmp, out)
-    BUILD_INFO.update(
-        path=str(out), seconds=time.perf_counter() - t0, cached=False,
-        ptxas="\n".join(logs),
-    )
-    return out
+    return time.perf_counter() - t0
+
+
+def build(shapes=()) -> Path:
+    """Compile csrc/*.cu into the one library, and each (SHAPED source,
+    defines) of ``shapes`` into its own, all at once (each cached by source
+    hash): one nvcc per source, all started together, then one link per
+    library. Returns the one library's path."""
+    main = _target(sources())
+    cached = main[0].exists()
+    seconds = _build([main, *(shaped_target(src, d) for src, d in shapes)])
+    BUILD_INFO.update(path=str(main[0]), seconds=seconds, cached=cached,
+                      ptxas=report(main[0]))
+    return main[0]
+
+
+def _load(path: Path, signatures: dict, every: bool = True):
+    """Load a built library and type its entries (``every``: all of
+    ``signatures``, else those it holds)."""
+    try:
+        handle = ctypes.CDLL(str(path))
+    except OSError as exc:
+        raise KernelError(f"cannot load the kernel library: {exc}") from exc
+    for name, args in signatures.items():
+        if every or hasattr(handle, name):
+            fn = getattr(handle, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+    return handle
 
 
 def lib():
@@ -170,16 +231,21 @@ def lib():
     global _lib
     with _lock:
         if _lib is None:
-            try:
-                handle = ctypes.CDLL(str(build()))
-            except OSError as exc:
-                raise KernelError(f"cannot load the kernel library: {exc}") from exc
-            for name, args in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
-            _lib = handle
+            _lib = _load(build(), _SIGNATURES)
     return _lib
+
+
+def shaped_lib(src: str, defines: dict):
+    """The library of ``csrc/<src>`` (a :data:`SHAPED` source) built with
+    ``defines`` as -D macros (built on first use)."""
+    key = (src, tuple(sorted(defines.items())))
+    with _lock:
+        handle = _shaped.get(key)
+        if handle is None:
+            target = shaped_target(src, defines)
+            _build([target])
+            handle = _shaped[key] = _load(target[0], SHAPED[src], every=False)
+    return handle
 
 
 def check(rc: int, name: str) -> None:
