@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py            # the smoke
     python3 chip_smoke.py --profile  # + a torch.profiler breakdown of each slice
     python3 chip_smoke.py --out DIR  # long outputs (ptxas, profile, JSON) to DIR
-    python3 chip_smoke.py --before DIR  # + B2/B5 of the checkout DIR, timed in turns
+    python3 chip_smoke.py --before DIR  # + B2-B5 of the checkout DIR, timed in turns
                                         #   with this checkout's
 
 Phases (any failure exits non-zero and prints no result line):
@@ -55,6 +55,11 @@ Phases (any failure exits non-zero and prints no result line):
    within 0.05 mm). Then 3 frame-sets at resampling factor 1.0 (flat grid
    (540, 962)), and camera 0 for one frame through ``BlobMachine`` and one
    through ``full_step(rs_grid=None)``;
+   then the idle path: the single-camera ``App`` on the card under the
+   default config (``wait_for_geometry`` false) takes 100 frames of camera
+   0 before any geometry (frame 100 saved as the sample image), then the
+   geometry packet and 10 detection frames within the same bounds, none
+   sent before it (``run_idle``);
 7. E1 and E5 at their own contracts (no production path runs them): the
    banded warp pass with window starts at its experiment's shapes, and the
    row top-k at rows-per-block 8, 32 and 64 on its experiment's shapes;
@@ -68,7 +73,14 @@ Phases (any failure exits non-zero and prints no result line):
    and 37x61 maps, on a constant map and above every threshold; both are
    timed at both factors' shapes and at radii no slice uses, with their
    ``-Xptxas -v`` lines, and with ``--before DIR`` beside the B2 and B5
-   of the checkout DIR (its own package and build), in turns.
+   of the checkout DIR (its own package and build), in turns. B3 and B4
+   must equal select_m (the Pallas ``_select_m``) in every slot,
+   exhausted ones included, at every list bucket of csrc/topk.cu and
+   above it, on slice 1's calls, slice 4's factor-1.0 map, Q = 512 and
+   tie/exhausted cases, and with ``--before DIR`` equal to DIR's B3 and
+   B4 and timed in turns with them; B4's ring call is also timed at m = 1
+   and with 32 blobs, and a one-element fill gives the card's launch
+   floor.
 
 Each slice, and the contract run of E1 and E5, is driven with the launch
 counts set to 0 just before it and read just after. The last line is
@@ -746,6 +758,143 @@ def run_one_camera(torch, rig, wrappers: list) -> None:
           f"{berr:.2f} mm; launches {launches}")
 
 
+IDLE_FRAMES = 100  # the App's idle path saves frame 100 as its sample image
+IDLE_AFTER = 10  # detection frames once geometry has arrived
+IDLE_GROUP, IDLE_PORT = "224.99.99.61", 17611  # the App's sockets, never sent to by the smoke
+
+
+def geometry_packet(geometry, cam_id: int) -> bytes:
+    """The plain geometry (net/geometry_io.py) with camera ``cam_id``'s
+    calibration as the serialized SSL_WrapperPacket a geometry publisher
+    sends."""
+    import dataclasses
+
+    from vision_processor_tpu_torch.proto import SSL_WrapperPacket
+
+    pkt = SSL_WrapperPacket()
+    plain, field = geometry.field, pkt.geometry.field
+    for name in plain.present:
+        setattr(field, name, getattr(plain, name))
+    for line in plain.field_lines:
+        seg = field.field_lines.add()
+        seg.name, seg.thickness = line.name, line.thickness
+        seg.p1.x, seg.p1.y, seg.p2.x, seg.p2.y = line.p1.x, line.p1.y, line.p2.x, line.p2.y
+    for arc in plain.field_arcs:
+        out = field.field_arcs.add()
+        out.name, out.radius, out.a1, out.a2 = arc.name, arc.radius, arc.a1, arc.a2
+        out.center.x, out.center.y, out.thickness = arc.center.x, arc.center.y, arc.thickness
+    calib = next(c for c in geometry.calib if c.camera_id == cam_id)
+    proto = pkt.geometry.calib.add()
+    for f in dataclasses.fields(calib):
+        setattr(proto, f.name, getattr(calib, f.name))
+    return pkt.SerializeToString()
+
+
+def run_idle(torch, rig) -> dict:
+    """The single-camera ``App`` on the card under the default config
+    (``wait_for_geometry`` false, config.yml's resampling factor 1.25, the
+    stream off): camera 0 of the rig serves IDLE_FRAMES frames before any
+    geometry, which take the idle path (frame 100 saved as
+    img/0.raw.jpg, here under OUT/idle/); then the geometry packet with
+    camera 0's calibration reaches the App's vision socket through its
+    receive handler, as off the wire, and IDLE_AFTER frames take the
+    detection path. Fails unless the run ends without error, the sample
+    image is the demosaiced frame's size, no detection was sent before
+    geometry, IDLE_AFTER were sent after it, each after the first with the
+    4 robot ids within 30 mm and the ball within 40 mm, and B1-B4 were
+    launched once a detection frame (B1 twice, B4 twice)."""
+    phase("idle path: App before and after geometry (default config)")
+    import cv2
+    import yaml
+
+    from vision_processor_tpu_torch.app.main import App
+    from vision_processor_tpu_torch.io.camera import CameraDriver, RawFrame, register_driver
+    from vision_processor_tpu_torch.ops import cuda as K
+
+    geometry, scenes, raws, (width, height) = rig
+    raw, packet, holder = raws[0], geometry_packet(geometry, 0), {}
+
+    class Camera(CameraDriver):
+        def __init__(self):
+            self.i = 0
+
+        @property
+        def fmt(self):
+            return "RGGB"
+
+        def expected_frametime(self):
+            return 0.01
+
+        def get_time(self):
+            return self.i * 0.01
+
+        def read_image(self):
+            if self.i >= IDLE_FRAMES + IDLE_AFTER:
+                return None
+            if self.i == IDLE_FRAMES:
+                holder["app"].socket._parse(packet)
+                holder["geometry_at"] = len(holder["sent"])
+            self.i += 1
+            return RawFrame(data=raw, fmt="RGGB", width=width, height=height)
+
+    register_driver("SMOKE_IDLE", lambda cam_cfg: Camera())
+    workdir = OUT / "idle"
+    workdir.mkdir(parents=True, exist_ok=True)
+    (workdir / "img" / "0.raw.jpg").unlink(missing_ok=True)
+    cfg_path = workdir / "config.yml"
+    cfg_path.write_text(yaml.dump({
+        "cam_id": 0, "bot_heights_file": str(workdir / "no-heights.yml"),
+        "camera": {"driver": "SMOKE_IDLE"},
+        "network": {"vision_ip": IDLE_GROUP, "vision_port": IDLE_PORT,
+                    "gc_ip": IDLE_GROUP, "gc_port": IDLE_PORT + 1},
+        "stream": {"active": False}, "thresholds": {"resampling_factor": 1.25},
+    }))
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        app = holder["app"] = App(str(cfg_path), device=torch.device("cuda", 0))
+        if app.config.wait_for_geometry:
+            fail("idle path: the default config waits for geometry")
+        sent = holder["sent"] = []
+        send = app.socket.send
+
+        def record(msg):
+            sent.append(msg)
+            send(msg)
+
+        app.socket.send = record
+        K.reset_launches()
+        t0 = time.perf_counter()
+        app.run()  # closes the App, and with it the snapshot writer
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+    finally:
+        os.chdir(cwd)
+    sample = cv2.imread(str(workdir / "img" / "0.raw.jpg"))
+    if sample is None or sample.shape != (raw.shape[0] // 2, raw.shape[1] // 2, 3):
+        fail(f"idle path: no sample image of the demosaiced frame's size "
+             f"({None if sample is None else sample.shape})")
+    dets = [m for m in sent if m.HasField("detection")]
+    early = [m for m in sent[:holder.get("geometry_at", len(sent))] if m.HasField("detection")]
+    if early or any(m.detection.t_capture <= IDLE_FRAMES * 0.01 for m in dets):
+        fail(f"idle path: {len(early)} detection frames were sent before geometry")
+    if len(dets) != IDLE_AFTER:
+        fail(f"idle path: {len(dets)} detection frames after geometry, expected {IDLE_AFTER}")
+    worst = ball_worst = 0.0
+    for f, wrapper in enumerate(dets[1:], start=1):
+        _, err, berr = check_detections(f"idle path detection frame {f}", scenes[0], wrapper)
+        worst, ball_worst = max(worst, err), max(ball_worst, berr)
+    want = {name: 0 for name in launches}
+    want.update(band_pass=2, blob_response_fused=1, row_topk=1, query_select_topk=2)
+    check_launches("idle path", launches, want, IDLE_AFTER)
+    print(f"idle path: {IDLE_FRAMES} frames before geometry, sample image "
+          f"{tuple(sample.shape)}, {len(sent) - len(dets)} other packets; {len(dets)} "
+          f"detection frames after it, max bot err {worst:.2f} mm, max ball err "
+          f"{ball_worst:.2f} mm; launches {launches}; run {wall:.3f} s")
+    return {"launches": launches, "detections": len(dets), "max_bot_err_mm": worst,
+            "max_ball_err_mm": ball_worst, "run_s": wall}
+
+
 def _e1_inputs(torch):
     """E1's experiment (pallas_band_warp.py main()): src (4, 720, 896) u8
     values, pos (4, 432, 896) a bent ramp with per-channel quarter-pixel
@@ -973,11 +1122,17 @@ def time_fn(torch, fn, reps: int = 20) -> tuple[float, float]:
         b.record()
         b.synchronize()
         spans.append(a.elapsed_time(b))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return _busy_us(prof.events()) / 1e3 / reps, statistics.median(spans)
+    # a profiler session now and then returns no device records at all
+    # (busy 0 for a call that launched kernels): profile again, up to 3 times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy = _busy_us(prof.events())
+        if busy > 0:
+            break
+    return busy / 1e3 / reps, statistics.median(spans)
 
 
 def _add(a, b) -> tuple[float, float]:
@@ -1080,14 +1235,17 @@ def load_checkout(root: Path, name: str):
 
 
 def before_kernels(root: Path) -> dict:
-    """B2 and B5 of the checkout at ``root``, through its own wrappers:
-    {"B2": blob_response_fused, "B5": circularity_fused, "cuda": its
-    ops.cuda, "root": ``root`` as given}."""
+    """B2, B3, B4 and B5 of the checkout at ``root``, through its own
+    wrappers: {"B2": blob_response_fused, "B3": row_topk, "B4":
+    query_select_topk, "B5": circularity_fused, "cuda": its ops.cuda,
+    "root": ``root`` as given}."""
     import importlib
 
     name = load_checkout(root.resolve(), "vptpu_before").__name__
     bf = importlib.import_module(f"{name}.ops.blob_fused")
-    return {"B2": bf.blob_response_fused, "B5": bf.circularity_fused,
+    topk = importlib.import_module(f"{name}.ops.topk")
+    return {"B2": bf.blob_response_fused, "B3": topk.row_topk,
+            "B4": topk.query_select_topk, "B5": bf.circularity_fused,
             "cuda": importlib.import_module(f"{name}.ops.cuda"), "root": str(root)}
 
 
@@ -1172,7 +1330,7 @@ def _before_after(torch, new_fn, old_fn):
     return mean(t_n1, t_n2), mean(t_o1, t_o2)
 
 
-def _time_blob(torch, fn, old_fn, before):
+def _time_in_turns(torch, fn, old_fn, before):
     """(kernel time, the other checkout's time or None): in turns with it
     where ``--before`` gave one."""
     if before is None:
@@ -1219,7 +1377,7 @@ def _check_b2(torch, calls, calls_f1, before):
                                         ("o=1 r=4 dr=6, no slice's radii", other)):
         h, w = flat.shape[:2]
         plan = BF.tile_plan(o, r, dr)
-        t_k, t_old = _time_blob(torch, lambda: fused(flat, th, o, r, dr),
+        t_k, t_old = _time_in_turns(torch, lambda: fused(flat, th, o, r, dr),
                                 lambda: before["B2"](flat, th, o, r, dr), before)
         t_p = time_fn(torch, lambda: BF._blob_response_fused_plain(flat, th, o, r, dr))
         # per pixel, the TPU formulation's arithmetic: gradient dot 11, box
@@ -1243,100 +1401,172 @@ def _check_b2(torch, calls, calls_f1, before):
     return res
 
 
-def _check_b3(torch, calls):
+# m of the tie/exhausted map: every list bucket of csrc/topk.cu, the path's
+# m between them, and m above the largest (the block kernels)
+TOPK_MS = (1, 3, 4, 6, 8, 16, 19, 32, 40)
+
+
+def _same_slots(torch, got, want) -> bool:
+    return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _check_b3(torch, calls, calls_f1, before):
+    """Every slot, exhausted ones included, equal to select_m's (the
+    Pallas _select_m) and, where ``before`` has it, to the other
+    checkout's B3; values and valid indices equal to the plain version's;
+    on slice 1's map at its m and at 19 (the m-lane tier's), slice 4's
+    factor-1.0 map at its m and at 16, and a tie/exhausted map at every m
+    of TOPK_MS. Timed at those four path shapes, in turns with the other
+    checkout's B3."""
     import vision_processor_tpu_torch.ops.topk as T
 
     row_topk = T.row_topk.__wrapped__
     (masked, mm), _ = calls[0]
-    cases = [("slice", masked, mm)]
+    (masked1, mm1), _ = calls_f1[0]
     g = torch.Generator(device="cuda").manual_seed(5)
     x = torch.randn(432, 770, device="cuda", generator=g)
     x[torch.rand(432, 770, device="cuda", generator=g) < 0.97] = float("-inf")
     x[3] = float("-inf")
     x[5, 7] = x[5, 200] = x[5, 600] = 2.5
     x[9, :] = 1.0
-    for m in (6, 19):
-        cases.append((f"ties/exhausted m={m}", x, m))
+    x[11, :2] = 3.0
+    path = [(f"slice 1 {tuple(masked.shape)} m={mm}", masked, mm),
+            (f"slice 1 {tuple(masked.shape)} m=19", masked, 19),
+            (f"factor 1.0 {tuple(masked1.shape)} m={mm1}", masked1, mm1),
+            (f"factor 1.0 {tuple(masked1.shape)} m=16", masked1, 16)]
+    cases = path + [(f"ties/exhausted m={m}", x, m) for m in TOPK_MS]
     err = 0.0
     for label, xx, m in cases:
-        v_k, i_k = row_topk(xx, m)
+        got = row_topk(xx, m)
+        if not _same_slots(torch, got, T.select_m(xx, m)):
+            fail(f"row_topk {label}: a slot differs from select_m's")
+        if before is not None and not _same_slots(torch, got, before["B3"](xx, m)):
+            fail(f"row_topk {label}: a slot differs from {before['root']}'s B3")
         v_p, i_p = T._row_topk_plain(xx, m)
-        ok_v = bool(((v_k == v_p) | (torch.isinf(v_k) & torch.isinf(v_p))).all())
         valid = v_p > float("-inf")
-        ok_i = bool((i_k[valid] == i_p[valid]).all())
-        if not (ok_v and ok_i):
-            fail(f"row_topk {label}: values equal {ok_v}, indices equal {ok_i}")
+        if not (torch.equal(got[0], v_p) and torch.equal(got[1][valid], i_p[valid])):
+            fail(f"row_topk {label}: values or valid indices differ from the plain version")
         if bool(valid.any()):
-            err = max(err, float((v_k[valid] - v_p[valid]).abs().max()))
+            err = max(err, float((got[0][valid] - v_p[valid]).abs().max()))
         v_l, _ = torch.topk(xx, m, dim=1)  # tie order differs: values only
-        if not bool(((v_l == v_p) | (torch.isinf(v_l) & torch.isinf(v_p))).all()):
+        if not torch.equal(v_l, v_p):
             fail(f"torch.topk yardstick {label}: values differ")
-    t_k = time_fn(torch, lambda: row_topk(masked, mm))
-    t_p = time_fn(torch, lambda: T._row_topk_plain(masked, mm))
-    t_l = time_fn(torch, lambda: torch.topk(masked, mm, dim=1))
-    print(f"B3 row_topk ({tuple(masked.shape)}, m={mm}; +ties/exhausted m=6,19): values "
-          f"bit-equal, indices equal where value > -inf; kernel {_fmt(t_k)} vs plain "
-          f"{_fmt(t_p)}; library torch.topk (values equal) {_fmt(t_l)}")
-    r, l = masked.shape
-    return _result("row_topk", "vision_processor_tpu_torch/csrc/topk.cu",
-                   "vision_processor_tpu/ops/topk.py:109", err, t_k, t_p,
-                   bound(4 * r * l + 8 * r * mm, r * l), t_l)
+    print(f"B3 row_topk: every slot equal to select_m's"
+          f"{'' if before is None else ' and to ' + before['root'] + chr(39) + 's B3'}, "
+          f"values and valid indices to the plain version's, in {len(cases)} cases "
+          f"({'; '.join(label for label, _, _ in path)}; ties/exhausted m={TOPK_MS})")
+    times = {}
+    for label, xx, m in path:
+        r, l = xx.shape
+        t_k, t_old = _time_in_turns(torch, lambda: row_topk(xx, m),
+                                    lambda: before["B3"](xx, m), before)
+        t_p = time_fn(torch, lambda: T._row_topk_plain(xx, m))
+        t_l = time_fn(torch, lambda: torch.topk(xx, m, dim=1))
+        bnd = bound(4 * r * l + 8 * r * m, r * l)
+        print(f"B3 {label}: kernel {_fmt(t_k)}{_before_text(t_old, before)}; plain "
+              f"{_fmt(t_p)}; library torch.topk {_fmt(t_l)}; bound {bnd[0]:.6f} ms "
+              f"({bnd[1]})")
+        times[label] = {"t_k": t_k, "t_before": t_old, "t_p": t_p, "t_lib": t_l,
+                        "bound": bnd}
+    main = times[path[0][0]]
+    res = _result("row_topk", "vision_processor_tpu_torch/csrc/topk.cu",
+                  "vision_processor_tpu/ops/topk.py:109", err, main["t_k"], main["t_p"],
+                  main["bound"], main["t_lib"])
+    res["times"] = times
+    return res
 
 
-def _check_b4(torch, calls):
+def _query_bound(q, k, m):
+    """(bytes, float32 operations) of one B4 call: queries, radii, the blob
+    table and ranks read once, values and indices written once; d^2, the
+    radius test and the score, 6 operations a pair."""
+    return 12 * q + 12 * k + 8 * q * m, 6 * q * k
+
+
+def _check_b4(torch, calls, before):
+    """Every slot, exhausted ones included, equal to the plain version's
+    (select_m over the materialized scores) and, where ``before`` has it,
+    to the other checkout's B4; on slice 1's ring and tracked calls, the
+    ring's inputs at Q = 512 (the dense window's anchors: the 128 queries
+    at four offsets) and at every m of TOPK_MS, and a tie/exhausted case.
+    Timed per frame (ring + tracked) and per call at Q = 128, 160 and 512,
+    in turns with the other checkout's B4."""
     import vision_processor_tpu_torch.ops.topk as T
 
     query = T.query_select_topk.__wrapped__
-    err = 0.0
-    t_k = t_p = (0.0, 0.0)
-    n_bytes = n_ops = 0.0
-    labels = []
-    seen = set()
+    frame, seen = [], set()
     for (qxy, r2, bxy, rank), kw in calls:
-        m, by_rank = kw["m"], kw["by_rank"]
-        q, k = qxy.shape[0], bxy.shape[0]
-        # the bound counts every call of the frame (ring and tracked)
-        n_bytes += 12 * q + 12 * k + 8 * q * m
-        n_ops += 6 * q * k
-        if (m, by_rank, q) in seen:
-            continue
-        seen.add((m, by_rank, q))
-        v_k, i_k = query(qxy, r2, bxy, rank, m=m, by_rank=by_rank)
-        v_p, i_p = T._query_select_plain(qxy, r2, bxy, rank, m, by_rank)
-        valid = v_p > float("-inf")
-        if not bool(((v_k > float("-inf")) == valid).all()):
-            fail("query_select_topk validity differs")
-        if by_rank:
-            ok_v = bool((v_k[valid] == v_p[valid]).all())
-        else:
-            ok_v = ulp_close(torch, v_k, v_p, 2)
-        ok_i = bool((i_k[valid] == i_p[valid]).all())
-        if not (ok_v and ok_i):
-            fail(f"query_select_topk (m={m}, by_rank={by_rank}) disagrees")
-        if bool(valid.any()):
-            err = max(err, float((v_k[valid] - v_p[valid]).abs().max()))
-        t_k = _add(t_k, time_fn(torch, lambda: query(qxy, r2, bxy, rank, m=m,
-                                                     by_rank=by_rank)))
-        t_p = _add(t_p, time_fn(torch, lambda: T._query_select_plain(qxy, r2, bxy, rank,
-                                                                    m, by_rank)))
-        labels.append(f"Q={q} K={k} m={m} {'rank' if by_rank else '-d2'}")
-    # exhausted queries and exact distance ties
+        key = (qxy.shape[0], kw["m"], kw["by_rank"])
+        if key not in seen:
+            seen.add(key)
+            frame.append((*(t.contiguous() for t in (qxy, r2, bxy, rank)), kw["m"],
+                          kw["by_rank"]))
+    ring = next(c for c in frame if c[5])
+    q512 = (torch.cat([ring[0] + d for d in (0.0, 3.7, -3.7, 7.4)]).contiguous(),
+            ring[1].repeat(4).contiguous(), ring[2], ring[3], ring[4], True)
+    cases = [(f"{'ring' if c[5] else 'tracked'} Q={c[0].shape[0]} K={c[2].shape[0]} "
+              f"m={c[4]} {'rank' if c[5] else '-d2'}", c) for c in frame]
+    cases.append((f"ring at Q=512 m={ring[4]}", q512))
+    cases += [(f"ring m={m} {'rank' if by else '-d2'}", (*ring[:4], m, by))
+              for m in TOPK_MS for by in (True, False)]
     qxy = torch.zeros((3, 2), device="cuda")
     bxy = torch.tensor([[3.0, 4.0], [-3.0, 4.0], [5.0, 0.0], [100.0, 0.0]], device="cuda")
     r2 = torch.tensor([1.0, 25.0, 1e6], device="cuda")
     rank = torch.tensor([1.0, 1.0, float("inf"), 0.0], device="cuda")
-    for by_rank in (True, False):
-        v_k, i_k = query(qxy, r2, bxy, rank, m=4, by_rank=by_rank)
-        v_p, i_p = T._query_select_plain(qxy, r2, bxy, rank, 4, by_rank)
-        valid = v_p > float("-inf")
-        if not (bool((v_k == v_p).all()) and bool((i_k[valid] == i_p[valid]).all())):
-            fail(f"query_select_topk tie/exhausted case (by_rank={by_rank}) disagrees")
-    print(f"B4 query_select_topk ({'; '.join(labels)}; +ties/exhausted): rank values "
-          f"bit-equal, -d2 values within 2 ulp, indices equal where valid; per frame "
-          f"kernel {_fmt(t_k)} vs plain {_fmt(t_p)}; no library call")
-    return _result("query_select_topk", "vision_processor_tpu_torch/csrc/topk.cu",
-                   "vision_processor_tpu/ops/topk.py:162", err, t_k, t_p,
-                   bound(n_bytes, n_ops), None)
+    cases += [(f"ties/exhausted m={m} {'rank' if by else '-d2'}", (qxy, r2, bxy, rank, m, by))
+              for m in (4, 40) for by in (True, False)]
+    err = 0.0
+    for label, (a, b, c, d, m, by) in cases:
+        want = T._query_select_plain(a, b, c, d, m, by)
+        got = [query(a, b, c, d, m=m, by_rank=by)]
+        if before is not None:
+            got.append(before["B4"](a, b, c, d, m=m, by_rank=by))
+        if not all(_same_slots(torch, gg, want) for gg in got):
+            fail(f"query_select_topk {label}: a slot differs from the plain version's")
+        valid = want[0] > float("-inf")
+        if bool(valid.any()):
+            err = max(err, float((got[0][0][valid] - want[0][valid]).abs().max()))
+    print(f"B4 query_select_topk: every slot equal to the plain version's"
+          f"{'' if before is None else ' and to ' + before['root'] + chr(39) + 's B4'} in "
+          f"{len(cases)} cases ({'; '.join(label for label, _ in cases[:len(frame) + 1])}; "
+          f"ring m={TOPK_MS}; ties/exhausted)")
+
+    def run_frame(fn):
+        return lambda: [fn(a, b, c, d, m=m, by_rank=by) for a, b, c, d, m, by in frame]
+
+    t_k, t_old = _time_in_turns(torch, run_frame(query),
+                                run_frame(before["B4"]) if before else None, before)
+    t_p = time_fn(torch, lambda: [T._query_select_plain(*c) for c in frame])
+    n_bytes = n_ops = 0
+    for a, _, c, _, m, _ in frame:
+        nb, no = _query_bound(a.shape[0], c.shape[0], m)
+        n_bytes, n_ops = n_bytes + nb, n_ops + no
+    bnd = bound(n_bytes, n_ops)
+    print(f"B4 per frame ({len(frame)} calls): kernel {_fmt(t_k)}"
+          f"{_before_text(t_old, before)}; plain {_fmt(t_p)}; bound {bnd[0]:.6f} ms "
+          f"({bnd[1]}); no library call")
+    per_call = {}
+    for label, (a, b, c, d, m, by) in cases[:len(frame) + 1]:
+        t_c, t_c_old = _time_in_turns(torch, lambda: query(a, b, c, d, m=m, by_rank=by),
+                                      lambda: before["B4"](a, b, c, d, m=m, by_rank=by),
+                                      before)
+        cb = bound(*_query_bound(a.shape[0], c.shape[0], m))
+        print(f"B4 {label}: kernel {_fmt(t_c)}{_before_text(t_c_old, before)}; bound "
+              f"{cb[0]:.6f} ms ({cb[1]})")
+        per_call[label] = {"t_k": t_c, "t_before": t_c_old, "bound": cb}
+    # where the ring call's time goes: one merge round (m = 1), and the
+    # scan of 32 blobs in place of 2000 (K = 32)
+    a, b, c, d, m, by = ring
+    split = {"ring m=1": time_fn(torch, lambda: query(a, b, c, d, m=1, by_rank=by)),
+             "ring K=32": time_fn(torch, lambda: query(a, b, c[:32].contiguous(),
+                                                       d[:32].contiguous(), m=m,
+                                                       by_rank=by))}
+    print("B4 " + "; ".join(f"{label}: kernel {_fmt(t)}" for label, t in split.items()))
+    res = _result("query_select_topk", "vision_processor_tpu_torch/csrc/topk.cu",
+                  "vision_processor_tpu/ops/topk.py:162", err, t_k, t_p, bnd, None)
+    res["times"] = {"frame": {"t_k": t_k, "t_before": t_old, "t_p": t_p, "bound": bnd},
+                    "calls": per_call, "split": split}
+    return res
 
 
 def _check_b5(torch, calls, calls_f1, before):
@@ -1363,7 +1593,7 @@ def _check_b5(torch, calls, calls_f1, before):
                                 ("o=1 r=2, no slice's radii", (flat, 1, 2))):
         h, w = ff.shape[:2]
         plan = BF.tile_plan(oo, rr)
-        t_k, t_old = _time_blob(torch, lambda: circ_fused(ff, oo, rr),
+        t_k, t_old = _time_in_turns(torch, lambda: circ_fused(ff, oo, rr),
                                 lambda: before["B5"](ff, oo, rr), before)
         t_p = time_fn(torch, lambda: BF._circularity_fused_plain(ff, oo, rr))
         ops_px = 11 + 2 * (rr - 2) + 6  # gradient dot, box rows and columns, quadrant min
@@ -1726,13 +1956,17 @@ def check_kernels(torch, s1: dict, s2: dict, s3: dict, s4: dict, s4f1: dict,
     4's; E1 and E5 on their contract run's inputs; B2 and B5 also on slice
     4's factor-1.0 map, beside the other checkout's where ``before`` has it."""
     phase("kernels vs plain")
+    one = torch.zeros(1, device="cuda")
+    floor = time_fn(torch, one.zero_)
+    print(f"one launch of a one-element fill (the least a kernel takes on this card): "
+          f"{_fmt(floor)}")
     c1, c2, c3, c4 = s1["calls"], s2["calls"], s3["calls"], s4["calls"]
     b2_f1 = s4f1["calls"]["blob_response_fused"]
     return [
         ("B1", _check_b1(torch, c1["band_pass"])),
         ("B2", _check_b2(torch, c1["blob_response_fused"], b2_f1, before)),
-        ("B3", _check_b3(torch, c1["row_topk"])),
-        ("B4", _check_b4(torch, c1["query_select_topk"])),
+        ("B3", _check_b3(torch, c1["row_topk"], s4f1["calls"]["row_topk"], before)),
+        ("B4", _check_b4(torch, c1["query_select_topk"], before)),
         ("B5", _check_b5(torch, c2["circularity_fused"], b2_f1, before)),
         ("B6", _check_b6(torch, c2["combo_chain"])),
         ("B7", _check_b7(torch, c2["gather_corners"])),
@@ -1749,8 +1983,9 @@ def main() -> None:
     parser.add_argument("--profile", action="store_true")
     parser.add_argument("--out", type=Path, default=OUT)
     parser.add_argument("--before", type=Path, default=None,
-                        help="another checkout of the repository whose B2 and B5 "
-                             "are timed in turns with this one's")
+                        help="another checkout of the repository whose B2-B5 are "
+                             "timed in turns with this one's (B3 and B4 also held "
+                             "equal to this one's in every slot)")
     args = parser.parse_args()
     OUT = args.out.resolve()
 
@@ -1783,6 +2018,7 @@ def main() -> None:
     s4f1 = run_slice4(torch, recorder, rig, "slice 4, factor 1.0", 1.0,
                       SLICE4_FACTOR1_FRAME_SETS)
     run_one_camera(torch, rig, s4["last_wrappers"])
+    idle = run_idle(torch, rig)
     contracts = run_contracts(torch)
     for label, s, unit in (("slice 1 (warp, score-first)", s1, "frame"),
                            ("slice 2 (gather, circ-first, fused combo)", s2, "frame"),
@@ -1835,12 +2071,14 @@ def main() -> None:
                      "b1_ms": dict(results)["E1"]["b1_same_shapes"][1]},
         "e5_sweep": dict(results)["E5"]["sweep"],
         "b2_b5_times": {row: dict(results)[row]["times"] for row in ("B2", "B5")},
+        "b3_b4_times": {row: dict(results)[row]["times"] for row in ("B3", "B4")},
         "b2_events_per_call": dict(results)["B2"]["events"],
         "slices": {label: {k: v for k, v in s.items() if k not in skip}
                    for label, s in (("slice 1", s1), ("slice 2", s2), ("slice 3", s3),
                                     ("slice 3, warp", s3w), ("slice 4", s4),
                                     ("slice 4, factor 1.0", s4f1),
                                     ("E1 and E5 contracts", contracts))},
+        "idle path": idle,
     }, indent=1))
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))

@@ -1,7 +1,8 @@
 """The PyTorch port's App loop end to end: synthetic camera + geometry
 publisher + App + detection recorder over an isolated multicast group (the
-pattern of tests/test_app_integration.py), and the NotImplementedError
-guards of the paths the port does not carry yet.
+pattern of tests/test_app_integration.py), the idle path before geometry
+under the default config, and the NotImplementedError guards of the paths
+the port does not carry yet.
 """
 import threading
 import time
@@ -152,6 +153,117 @@ def test_app_refuses_unported_outputs(tmp_path, overrides):
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         App(str(_write_config(tmp_path, **overrides)), device="cpu")
+
+
+IDLE_FRAMES = 100  # the idle path saves frame 100
+
+
+def test_app_idle_until_geometry(tmp_path, divb_field, overhead_model, monkeypatch):
+    """The default config (wait_for_geometry false): the App runs the idle
+    path on the 100 frames served before the geometry publisher starts,
+    saves frame 100 as img/0.raw.jpg and sends nothing; once geometry with
+    this camera's calibration arrives, its detections meet
+    test_app_full_loop's bounds."""
+    import cv2
+
+    from vision_processor_tpu.net.udp import UDPSocket
+    from vision_processor_tpu.proto import SSL_WrapperPacket
+    from vision_processor_tpu_torch.app.main import App
+    from vision_processor_tpu_torch.io.camera import CameraDriver, RawFrame, register_driver
+    from vision_processor_tpu_torch.io.synthetic import Scene, SceneBall, SceneBot, render_raw
+
+    monkeypatch.chdir(tmp_path)
+    scene = Scene(
+        bots=[SceneBot(5, "yellow", -2600.0, 400.0, 1.1)],
+        balls=[SceneBall(-3200.0, -1100.0)],
+        noise_sigma=1.0,
+    )
+    model = _port_model(overhead_model)
+    raw = render_raw(model, divb_field.geometry.field, scene, "RGGB")
+    n_after = 3
+    geometry = divb_field
+    geometry.geometry.ClearField("calib")
+    geometry.geometry.calib.append(overhead_model.to_proto(0))
+
+    class Sender(UDPSocket):
+        def _parse(self, data):
+            pass
+
+    sender = Sender(GROUP, PORT)
+    stop = threading.Event()
+
+    def publish():
+        while not stop.is_set():
+            sender.send(geometry)
+            time.sleep(0.05)
+
+    thread = threading.Thread(target=publish, daemon=True)
+    holder = {}
+
+    class Camera(CameraDriver):
+        """The rendered frame IDLE_FRAMES times, then the publisher starts
+        and, once this App's socket holds the geometry, n_after more."""
+
+        def __init__(self):
+            self.i = 0
+
+        @property
+        def fmt(self):
+            return "RGGB"
+
+        def expected_frametime(self):
+            return 0.01
+
+        def get_time(self):
+            return self.i * 0.01
+
+        def read_image(self):
+            if self.i >= IDLE_FRAMES + n_after:
+                return None
+            if self.i == IDLE_FRAMES:
+                thread.start()
+                sock, deadline = holder["app"].socket, time.monotonic() + 10.0
+                while sock.geometry_version == 0 and time.monotonic() < deadline:
+                    sock.geometry_check()
+                    time.sleep(0.01)
+            self.i += 1
+            return RawFrame(data=raw, fmt="RGGB", width=960, height=720)
+
+    register_driver("SYNTHETIC_IDLE", lambda cam_cfg: Camera())
+    received = []
+
+    class Recorder(UDPSocket):
+        def _parse(self, data):
+            wrapper = SSL_WrapperPacket()
+            wrapper.ParseFromString(data)
+            if wrapper.HasField("detection"):
+                received.append(wrapper.detection)
+
+    recorder = Recorder(GROUP, PORT)
+    cfg_path = _write_config(tmp_path, camera={"driver": "SYNTHETIC_IDLE"},
+                             debug={"wait_for_geometry": False})
+    try:
+        app = holder["app"] = App(str(cfg_path), device="cpu")
+        assert not app.config.wait_for_geometry
+        app.run()  # closes the App, and with it the snapshot writer
+        time.sleep(0.3)
+    finally:
+        stop.set()
+        if thread.is_alive():
+            thread.join()
+        recorder.close()
+        sender.close()
+    sample = cv2.imread(str(tmp_path / "img" / "0.raw.jpg"))
+    assert sample is not None and sample.shape == (raw.shape[0] // 2, raw.shape[1] // 2, 3)
+    assert sorted(d.frame_number for d in received) == list(range(1, n_after + 1))
+    assert all(d.t_capture > IDLE_FRAMES * 0.01 for d in received)  # none before geometry
+    last = max(received, key=lambda d: d.frame_number)
+    assert [b.robot_id for b in last.robots_yellow] == [5]
+    bot = last.robots_yellow[0]
+    assert abs(bot.x - -2600.0) < 30
+    assert abs(bot.y - 400.0) < 30
+    assert len(last.balls) == 1
+    assert abs(last.balls[0].x - -3200.0) < 40
 
 
 def test_app_refuses_calibration_path(tmp_path, divb_field, overhead_model):

@@ -229,6 +229,36 @@ def test_each_shape_builds_its_own_kernel():
         BF.kernel_defines(8, 120, 100)
 
 
+def test_build_links_a_repeated_shape_once(tmp_path, monkeypatch):
+    """A shape named twice in one build (B5's (o, r) from two B2 radii)
+    is compiled and linked once, with a stand-in nvcc that refuses a link
+    given the same object twice, as the linker does."""
+    import stat
+    import sys
+
+    from vision_processor_tpu_torch.ops import cuda
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        "args = sys.argv[1:]\n"
+        "out = args.index('-o') + 1\n"
+        "objs = [] if '-c' in args else args[out + 1:]\n"
+        "if len(objs) != len(set(objs)):\n"
+        "    sys.exit('multiple definition')\n"
+        "open(args[out], 'w').close()\n")
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(cuda, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(cuda, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda, "BUILD_INFO", {})
+    shapes = [(1, 4, 3), (1, 4, None), (1, 4, 6), (1, 4, None)]
+    BF.build_kernels(shapes)
+    for shape in shapes:
+        assert cuda.shaped_target("blob_fused.cu", BF.kernel_defines(*shape))[0].exists()
+    assert len(list((tmp_path / "build").glob("libblob_fused_*.so"))) == 3
+
+
 def test_count_is_the_kept_pixels_on_the_cpu():
     flat = torch.from_numpy(_flat(2))
     ms, _, _, count = BF.blob_response_fused(flat, 0.0, 1, 4, 3)

@@ -92,7 +92,9 @@ def _register(name, fleet, frames, outage=()):
     register_driver(name, lambda cam_cfg: Cached(int(cam_cfg.path)))
 
 
-def _configs(tmp_path, driver, port):
+def _configs(tmp_path, driver, port, ports=None, wait=True):
+    """One config per camera; ``ports``: each camera's vision port (default
+    all ``port``)."""
     paths = []
     for c in range(N_CAMS):
         config = {
@@ -100,10 +102,10 @@ def _configs(tmp_path, driver, port):
             "bot_heights_file": str(tmp_path / "none.yml"),
             "camera": {"driver": driver, "path": str(c)},
             "geometry": {"camera_amount": N_CAMS},
-            "network": {"vision_ip": GROUP, "vision_port": port,
+            "network": {"vision_ip": GROUP, "vision_port": ports[c] if ports else port,
                         "gc_ip": "224.99.99.102", "gc_port": port + 1},
             "stream": {"active": False},
-            "debug": {"wait_for_geometry": True},
+            "debug": {"wait_for_geometry": wait},
             "thresholds": {"blobs": 128},
         }
         p = tmp_path / f"{driver}{c}.yml"
@@ -116,15 +118,15 @@ class _Bus:
     """Publishes the geometry (field + both calibrations) on the group and
     records the detection frames sent there."""
 
-    def __init__(self, fleet, port):
+    def __init__(self, fleet, port, calibrated=range(N_CAMS)):
         from vision_processor_tpu.net.udp import UDPSocket
         from vision_processor_tpu.proto import SSL_WrapperPacket
 
         self.by_cam = {c: [] for c in range(N_CAMS)}
         geometry = SSL_WrapperPacket()
         geometry.geometry.field.CopyFrom(fleet.field)
-        for c, m in enumerate(fleet.jmodels):
-            geometry.geometry.calib.append(m.to_proto(c))
+        for c in calibrated:
+            geometry.geometry.calib.append(fleet.jmodels[c].to_proto(c))
         by_cam = self.by_cam
 
         class Socket(UDPSocket):
@@ -209,6 +211,53 @@ def test_one_camera_outage_keeps_fleet_alive(tmp_path, fleet):
     _check_detections(fleet, by_cam[1][-1], 1)
     fn0 = [d.frame_number for d in by_cam[0]]
     assert fn0 == sorted(fn0) and len(set(fn0)) == n_frames
+
+
+def test_fleet_waits_for_a_camera_without_geometry(tmp_path, fleet):
+    """Camera 0 calibrated, camera 1 with no geometry yet (its socket on a
+    port nobody publishes to), the default wait_for_geometry false: no
+    camera needs the calibration path, so the fleet waits for camera 1's
+    geometry, frame-set after frame-set, and sends nothing."""
+    from vision_processor_tpu_torch.app.multicam_app import MultiCamApp
+
+    port = PORT + 20
+    _register("SYNTH_MC_WAIT", fleet, frames=3)
+    bus = _Bus(fleet, port)
+    try:
+        app = MultiCamApp(_configs(tmp_path, "SYNTH_MC_WAIT", port, ports=[port, port + 2],
+                                   wait=False), device="cpu")
+        assert not app.configs[0].wait_for_geometry
+        deadline = time.monotonic() + 10.0
+        while app.sockets[0].geometry_version == 0 and time.monotonic() < deadline:
+            app.sockets[0].geometry_check()
+            time.sleep(0.01)
+        app.run()  # closes the app at its end
+        time.sleep(0.3)
+    finally:
+        bus.close()
+    assert app.processors[0].perspective.geometry_version
+    assert not app.processors[1].perspective.geometry_version
+    assert not app.sockets[1].geometry_version
+    assert not any(bus.by_cam.values())
+
+
+def test_fleet_refuses_only_a_camera_to_calibrate(tmp_path, fleet):
+    """Field geometry with camera 0's calibration only: camera 1 has
+    geometry and no calibration, which needs the calibration path."""
+    from vision_processor_tpu_torch.app.multicam_app import MultiCamApp
+
+    port = PORT + 24
+    _register("SYNTH_MC_CAL", fleet, frames=3)
+    bus = _Bus(fleet, port, calibrated=[0])
+    try:
+        app = MultiCamApp(_configs(tmp_path, "SYNTH_MC_CAL", port), device="cpu")
+        with pytest.raises(NotImplementedError, match="calibration"):
+            app.run()
+        app.close()
+    finally:
+        bus.close()
+    assert app.processors[0].perspective.geometry_version
+    assert not app.processors[1].perspective.geometry_version
 
 
 def test_kernel_failure_leaves_multicam_run(tmp_path, fleet):

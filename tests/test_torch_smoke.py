@@ -1,9 +1,9 @@
 """chip_smoke.py's loader of another checkout (``--before DIR``), on the CPU.
 
-The smoke times B2 and B5 of another checkout through that checkout's own
+The smoke times B2-B5 of another checkout through that checkout's own
 package, imported under another name. Here the checkout is this one: its
 package, loaded so, must be a second copy (its own modules and launch
-counts) whose B2 and B5 give what this package's give, bit for bit.
+counts) whose B2-B5 give what this package's give, bit for bit.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import torch
 
 from vision_processor_tpu_torch.ops import blob_fused as BF
 from vision_processor_tpu_torch.ops import cuda
+from vision_processor_tpu_torch.ops import topk as T
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -43,3 +44,24 @@ def test_before_kernels_are_a_second_copy(smoke):
     for a, b in zip((got[0], got[1], *got[2], got[3]), (want[0], want[1], *want[2], want[3])):
         assert torch.equal(a, b)
     assert torch.equal(before["B5"](flat, 2, 5), BF.circularity_fused(flat, 2, 5))
+
+
+def test_before_topk_kernels_are_a_second_copy(smoke):
+    before = smoke.before_kernels(ROOT)
+    assert before["B3"] is not T.row_topk and before["B4"] is not T.query_select_topk
+    assert before["B3"].__module__ == before["B4"].__module__ == "vptpu_before.ops.topk"
+
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(12, 50)).astype(np.float32)
+    x[rng.uniform(size=x.shape) < 0.8] = -np.inf
+    x = torch.from_numpy(x)
+    for a, b in zip(before["B3"](x, 6), T.row_topk(x, 6)):
+        assert torch.equal(a, b)
+    qxy = torch.from_numpy(rng.uniform(-100, 100, (7, 2)).astype(np.float32))
+    bxy = torch.from_numpy(rng.uniform(-100, 100, (40, 2)).astype(np.float32))
+    r2 = torch.full((7,), 2500.0)
+    rank = torch.from_numpy(rng.uniform(0, 5, 40).astype(np.float32))
+    for by_rank in (True, False):
+        got = before["B4"](qxy, r2, bxy, rank, m=4, by_rank=by_rank)
+        want = T.query_select_topk(qxy, r2, bxy, rank, m=4, by_rank=by_rank)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))

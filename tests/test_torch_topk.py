@@ -226,3 +226,93 @@ def test_row_topk_blk_matches_plain_on_card(cuda_device, shape):
         for blk in (8, 32, 64):
             kv, ki = T.row_topk_blk(x, m, blk)
             assert torch.equal(kv, pv) and torch.equal(ki, pi), (m, blk)
+
+
+# every list bucket of csrc/topk.cu, the m between them, and m above the
+# largest (the block kernels)
+CARD_MS = (1, 3, 4, 6, 8, 16, 19, 32, 40)
+
+
+def _card_rows(width=770):
+    """B3's card cases: _rows_case plus a row of equal values (every lane's
+    list full of ties), a row with +inf, rows with fewer valid values than
+    any bucket, and a row valid from index 0; the first ``width`` columns."""
+    x = _rows_case(rows=64, width=max(width, 770))
+    x[9] = 1.0
+    x[10, 17] = np.inf
+    x[11] = -np.inf
+    x[11, [5, 300, 301]] = [0.5, 7.0, 7.0]
+    x[12, :2] = 3.0
+    return np.ascontiguousarray(x[:, :width])
+
+
+def _assert_select_m(kv, ki, score, m):
+    """Every slot, exhausted ones included, equals select_m's: m (max,
+    lowest index) passes with the winners masked."""
+    pv, pi = T.select_m(score, m)
+    assert torch.equal(kv, pv), m
+    assert torch.equal(ki, pi), m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [770, 962, 5])
+def test_row_topk_every_slot_on_card(cuda_device, width):
+    """B3 at every bucket and above it, on the path's widths and on rows
+    shorter than m: every slot equals select_m's, and values and valid
+    indices equal the plain version's (a stable sort)."""
+    x = torch.from_numpy(_card_rows(width)).to(cuda_device)
+    for m in CARD_MS:
+        kv, ki = T.row_topk(x, m)
+        _assert_select_m(kv, ki, x, m)
+        sv, si = T._row_topk_plain(x, m) if m <= width else (None, None)
+        if sv is not None:
+            valid = sv > -np.inf
+            assert torch.equal(kv, sv) and torch.equal(ki[valid], si[valid]), m
+        exhausted = kv == -np.inf
+        assert (ki[exhausted] == 0).all(), m
+
+
+def _card_queries(seed, q, k=2000):
+    """B4's card cases: _query_case at the path's sizes, radii wide enough
+    that some queries hold more than 40 blobs, an exhausted query, exact
+    d2 and rank ties."""
+    qxy, r2, bxy, rank = _query_case(seed, q=q, k=k)
+    r2[1::7] = np.float32(600.0 ** 2)
+    return qxy, r2, bxy, rank
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [128, 160, 512])
+@pytest.mark.parametrize("by_rank", [True, False])
+def test_query_select_every_slot_on_card(cuda_device, q, by_rank):
+    """B4 at every bucket and above it: every slot equals the plain
+    version's (select_m over the materialized scores)."""
+    qxy, r2, bxy, rank = (torch.from_numpy(a).to(cuda_device)
+                          for a in _card_queries(q, q))
+    for m in CARD_MS:
+        want = T._query_select_plain(qxy, r2, bxy, rank, m, by_rank)
+        kv, ki = T.query_select_topk(qxy, r2, bxy, rank, m=m, by_rank=by_rank)
+        assert torch.equal(kv, want[0]) and torch.equal(ki, want[1]), m
+        assert (want[1][want[0] == -np.inf] == 0).all()
+        assert bool((want[0][0] == -np.inf).all())  # the exhausted query
+
+
+@pytest.mark.cuda
+def test_query_select_small_and_unaligned_on_card(cuda_device):
+    """Fewer blobs than m, and a blob table at an odd float offset (the
+    wrapper copies it to the float2 alignment the kernel reads)."""
+    qxy, r2, bxy, rank = _query_case(2, q=40, k=300)
+    qxy, r2, bxy, rank = (torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+                          for a in (qxy, np.full_like(r2, 1e8), bxy[:5], rank[:5]))
+    buf = torch.zeros(2 * 300 + 1, device=cuda_device)
+    qxy2, r22, bxy2, rank2 = (torch.from_numpy(a).to(cuda_device)
+                              for a in _query_case(4, q=40, k=300))
+    buf[1:].copy_(bxy2.reshape(-1))
+    odd = buf[1:].view(300, 2)
+    assert odd.data_ptr() % 8 == 4
+    for m in (3, 8, 40):
+        for by_rank in (True, False):
+            kv, ki = T.query_select_topk(qxy, r2, bxy, rank, m=m, by_rank=by_rank)
+            _assert_select_m(kv, ki, T._query_scores(qxy, r2, bxy, rank, by_rank), m)
+            kv, ki = T.query_select_topk(qxy2, r22, odd, rank2, m=m, by_rank=by_rank)
+            _assert_select_m(kv, ki, T._query_scores(qxy2, r22, bxy2, rank2, by_rank), m)

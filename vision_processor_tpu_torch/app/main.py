@@ -8,10 +8,11 @@ One config runs ``App``; more than one run ``MultiCamApp``
 Counterpart of vision_processor_tpu/app/main.py (reference
 src/main.cpp:251-427): read frame -> adopt geometry -> detection path ->
 multicast the detection frame, with the one-frame device/host overlap.
-The calibration path, the idle path (no geometry yet) and the debug
-outputs (H.264/JPEG stream, debug images, snapshots) are not ported yet;
-reaching one raises NotImplementedError naming the ROADMAP.md item that
-ports it.
+Before any geometry arrives the idle path runs: it saves the demosaiced
+frame 100 as ``img/<cam_id>.raw.jpg``. The calibration path and the debug
+outputs (H.264/JPEG stream, debug images, interval snapshots) are not
+ported yet; reaching one raises NotImplementedError naming the ROADMAP.md
+item that ports it.
 """
 from __future__ import annotations
 
@@ -25,8 +26,10 @@ import torch
 import yaml
 
 from ..io.camera import open_camera
+from ..io.snapshot import SnapshotWriter
 from ..net.udp import GCSocket, VisionSocket, get_real_time
 from ..ops.cuda import KernelError
+from ..ops.frame import quad2rgba, raw2quad
 from ..utils.config import VisionConfig
 from ..utils.log import get_logger
 from ..utils.timing import FrameStats, StageTimer
@@ -35,7 +38,7 @@ from .processor import Processor, TrackedArrays
 log = get_logger(__name__)
 
 _ROADMAP_DEBUG = "ROADMAP.md, 'Port: debug views, quad2rgba/nv12 and the debug stream (A8)'"
-_ROADMAP_CALIB = "ROADMAP.md, 'Port: calibration and idle paths'"
+_ROADMAP_CALIB = "ROADMAP.md, 'Port: calibration paths'"
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -64,6 +67,7 @@ class App:
         self.camera = open_camera(cfg.camera)
         self.device = torch.device(device)
         self.processor = Processor(cfg, self.socket, self.gc_socket, device=self.device)
+        self.snapshots = SnapshotWriter()
         self.running = True
 
         self.frame_stats = FrameStats()
@@ -103,7 +107,7 @@ class App:
                 elif self.socket.geometry_version:
                     raise _unported("the calibration path", _ROADMAP_CALIB)
                 else:
-                    raise _unported("the idle path (no geometry yet)", _ROADMAP_CALIB)
+                    self._idle_path(frame, frame_id)
             except (NotImplementedError, KernelError):
                 raise
             except Exception:  # keep the camera loop alive on transient
@@ -156,7 +160,20 @@ class App:
             self.frame_stats_timer.print_runtimes()
             self.frame_stats_timer.clear()
 
+    def _idle_path(self, frame, frame_id):
+        """No geometry yet: save the demosaiced frame 100 as the sample
+        image (JAX app/main.py _idle_path). The stream and the interval
+        snapshots, which would demosaic every frame, are refused at
+        construction."""
+        if frame_id != 100:
+            return
+        raw = torch.from_numpy(frame.data).to(self.device)
+        rgb = quad2rgba(raw2quad(raw, frame.fmt), frame.fmt).cpu().numpy()
+        self.snapshots.offer(rgb, f"img/{self.config.cam_id}.raw.jpg")
+        log.info("Saved sample image")
+
     def close(self):
+        self.snapshots.close()
         self.socket.close()
         self.gc_socket.close()
         self.camera.close()

@@ -12,10 +12,12 @@ Tracking input comes from the UDP tracker (full fleet state, finite-
 difference velocities), not from the device summary loop: host-side id
 assignment stays authoritative (reference src/udpsocket.cpp:204-256).
 
-Not ported yet, and refused where they would run: self-calibration of an
-uncalibrated camera and the idle views before geometry arrives (ROADMAP A3),
-the debug stream, debug images and snapshots (ROADMAP A2), and the
-rig-height calibration from camera pairs (``calib/pair.py``, ROADMAP A3).
+Until every camera is calibrated the fleet waits: a camera without
+geometry idles. Not ported yet, and refused where they would run:
+self-calibration of a camera that has field geometry but no calibration
+(ROADMAP A3), the debug stream, debug images and snapshots, and with them
+the idle views (ROADMAP A2), and the rig-height calibration from camera
+pairs (``calib/pair.py``, ROADMAP A3).
 The staggered plan enqueues every camera's core on the current stream; one
 stream per camera is ROADMAP D1.
 """
@@ -370,13 +372,29 @@ class MultiCamApp:
         return self.finish_frames(out, now, frames)
 
     def _calibrate_uncalibrated(self, frames) -> None:
-        """Some camera is uncalibrated: with field geometry on its socket it
-        would be calibrated from its frame, without geometry its raw view
-        streamed for aiming. Neither is ported."""
-        for sock in self.sockets:
-            if sock.geometry_version:
-                raise _unported("the calibration path", _ROADMAP_CALIB)
-        raise _unported("the idle path (no geometry yet)", _ROADMAP_CALIB)
+        """Some camera is uncalibrated (JAX multicam_app.py
+        _calibrate_uncalibrated): one with field geometry on its socket and
+        no calibration would be calibrated from its frame, which is not
+        ported; a camera already calibrated, or without geometry, is
+        skipped."""
+        for proc, sock in zip(self.processors, self.sockets):
+            if proc.perspective.geometry_version or not sock.geometry_version:
+                continue
+            raise _unported("the calibration path", _ROADMAP_CALIB)
+
+    def _idle_views(self, frame_id: int) -> None:
+        """Before its geometry arrives, a camera would stream its raw
+        demosaic for aiming, one camera per frame-set (JAX multicam_app.py
+        _idle_views). With the stream off and no snapshot interval, the
+        only settings the fleet accepts (ROADMAP A2), there is nothing to
+        emit."""
+        c = frame_id % self.n_cams
+        if self.sockets[c].geometry_version:
+            return
+        cfg = self.configs[c]
+        if not (cfg.stream_active or cfg.debug_stream_interval_ms > 0):
+            return
+        raise _unported("the idle views", _ROADMAP_DEBUG)
 
     def _finish_pending(self):
         """Finish the in-flight frame-set, if any; returns its wrappers."""
@@ -428,8 +446,12 @@ class MultiCamApp:
             try:
                 out = self.dispatch_frames(frames, now)
                 if out is None:
+                    # some camera is uncalibrated: finish any in-flight set,
+                    # calibrate what can be, and wait for the rest
                     self._finish_pending()
                     self._calibrate_uncalibrated(frames)
+                    self._idle_views(frame_id)
+                    continue
                 if self.pipeline:
                     self._finish_pending()
                     self._pending = (out, now, frames, stale)

@@ -154,10 +154,11 @@ def report(path: Path) -> str:
 
 
 def _build(targets) -> float:
-    """Build every target not on disk yet: one nvcc per source of each, all
-    started together, then one link each, each library's ptxas report
-    beside it. Returns the seconds taken."""
-    todo = [t for t in targets if not t[0].exists()]
+    """Build every target not on disk yet, each once however often it is
+    named: one nvcc per source of each, all started together, then one link
+    each, each library's ptxas report beside it. Returns the seconds
+    taken."""
+    todo = list({t[0]: t for t in targets if not t[0].exists()}.values())
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

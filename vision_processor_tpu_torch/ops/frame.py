@@ -113,6 +113,20 @@ def sample_rgb(planes: torch.Tensor, px: torch.Tensor, py: torch.Tensor, fmt: st
     raise ValueError(f"unknown raw format {fmt}")
 
 
+def quad2rgba(planes: torch.Tensor, fmt: str) -> torch.Tensor:
+    """Demosaic the planes (4, H, W) back to a half-resolution RGB image
+    (H, W, 3) f32 on the planes' device: Bayer planes blended at the
+    reference's quarter-pixel offsets over the full plane grid (reference
+    kernel/quad2rgba.cl:23-53); BGR is a channel reorder."""
+    if fmt == BGR:
+        return torch.stack([planes[2], planes[1], planes[0]], dim=-1)
+    h, w = planes.shape[1:]
+    py, px = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=planes.device),
+        torch.arange(w, dtype=torch.float32, device=planes.device), indexing="ij")
+    return torch.stack(sample_rgb(planes, px, py, fmt), dim=-1)
+
+
 def rgb_to_drgb(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Differential RGB color space, channels stacked last
     (reference kernel/resampling.cl:88-94)."""

@@ -7,14 +7,19 @@ the top-m by rank or by -d^2, never materializing the (Q, K) map) run as
 the CUDA kernels of ``csrc/topk.cu`` on the card.
 
 Semantics are those of the JAX package: values descending, ties to the
-lower index. On the card the kernels run m (max, lowest index) passes
-like the Pallas ``_select_m``, so exhausted slots repeat index 0; validity
-MUST be derived from the values (> -inf), never from the indices. The
-plain versions used for CPU tensors are the JAX package's own CPU paths:
-``lax.top_k`` semantics (a stable descending sort) for the rows and the
-iterative argmax for the queries. ``row_topk_blk`` (kernel E5, B3 at a
-swept number of rows per block, experiments/rowtopk_blk.py) is on no
-production path; its plain version is the iterative argmax.
+lower index. On the card the kernels give every slot what m (max, lowest
+index) passes give, like the Pallas ``_select_m`` (``select_m`` below), so
+exhausted slots repeat index 0 (the lowest -inf index, or the lowest
+winner); validity MUST be derived from the values (> -inf), never from the
+indices. An m up to 32 runs the register-list kernels (lists of 4, 8, 16
+or 32), one warp per row (B3) or 8 warps per query (B4), built into the
+one kernel library with the other sources; a larger m runs the block
+kernels, one block per row or query. The plain versions used for CPU
+tensors are the JAX package's own CPU paths: ``lax.top_k`` semantics (a
+stable descending sort) for the rows and the iterative argmax for the
+queries. ``row_topk_blk`` (kernel E5, B3 at a swept number of rows per
+block, experiments/rowtopk_blk.py) is on no production path; its plain
+version is the iterative argmax.
 """
 from __future__ import annotations
 
@@ -122,6 +127,8 @@ def query_select_topk(query_xy: torch.Tensor, radius2: torch.Tensor,
     if query_xy.shape[1] != 2 or blob_xy.shape[1] != 2 or radius2.shape[0] != q \
             or rank.shape[0] != k or k < 1 or m < 1:
         raise ValueError("query_select_topk: inconsistent shapes")
+    if blob_xy.data_ptr() % 8:
+        blob_xy = blob_xy.clone()  # the kernel reads each blob as one float2
     vals = torch.empty((q, m), dtype=torch.float32, device=query_xy.device)
     idx = torch.empty((q, m), dtype=torch.int32, device=query_xy.device)
     rc = cuda.lib().vp_query_topk(
