@@ -6,8 +6,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py            # the smoke
     python3 chip_smoke.py --profile  # + a torch.profiler breakdown of each slice
     python3 chip_smoke.py --out DIR  # long outputs (ptxas, profile, JSON) to DIR
-    python3 chip_smoke.py --before DIR  # + B2-B5 of the checkout DIR, timed in turns
-                                        #   with this checkout's
+    python3 chip_smoke.py --before DIR  # + B2-B6 and E5 of the checkout DIR, timed in
+                                        #   turns with this checkout's
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -80,7 +80,14 @@ Phases (any failure exits non-zero and prints no result line):
    tie/exhausted cases, and with ``--before DIR`` equal to DIR's B3 and
    B4 and timed in turns with them; B4's ring call is also timed at m = 1
    and with 32 blobs, and a one-element fill gives the card's launch
-   floor.
+   floor. B6 must be bit-equal to its plain version in all six outputs on
+   slice 2's call (A = 128) and at A = 512 with exact ties and invalid
+   anchors, both timed (with ``--before DIR`` also equal to DIR's B6 and
+   timed in turns with it). E5 must equal select_m in every slot at every
+   (shape, m, rows-per-block) of its sweep and on rows too dense for its
+   candidate buffer at m up to 40 (with ``--before DIR`` equal to DIR's E5
+   and timed in turns with it), and prints the warps a block it chose.
+   B6 and E5 print their ``-Xptxas -v`` registers.
 
 Each slice, and the contract run of E1 and E5, is driven with the launch
 counts set to 0 just before it and read just after. The last line is
@@ -1152,15 +1159,6 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ulp_close(torch, a, b, n_ulp: int) -> bool:
-    fin = torch.isfinite(a) & torch.isfinite(b)
-    same_inf = (a == b) | fin
-    if not bool(same_inf.all()):
-        return False
-    spacing = torch.abs(torch.nextafter(b, torch.full_like(b, float("inf"))) - b)
-    return bool((torch.abs(a - b)[fin] <= n_ulp * spacing[fin]).all())
-
-
 def _result(name, src, repl, err, t_k, t_p, bnd, t_lib):
     return {"name": name, "src": src, "repl": repl, "err": err, "t_k": t_k, "t_p": t_p,
             "bound": bnd, "t_lib": t_lib}
@@ -1235,17 +1233,19 @@ def load_checkout(root: Path, name: str):
 
 
 def before_kernels(root: Path) -> dict:
-    """B2, B3, B4 and B5 of the checkout at ``root``, through its own
-    wrappers: {"B2": blob_response_fused, "B3": row_topk, "B4":
-    query_select_topk, "B5": circularity_fused, "cuda": its ops.cuda,
-    "root": ``root`` as given}."""
+    """B2-B6 and E5 of the checkout at ``root``, through its own wrappers:
+    {"B2": blob_response_fused, "B3": row_topk, "B4": query_select_topk,
+    "B5": circularity_fused, "B6": combo_chain, "E5": row_topk_blk,
+    "cuda": its ops.cuda, "root": ``root`` as given}."""
     import importlib
 
     name = load_checkout(root.resolve(), "vptpu_before").__name__
     bf = importlib.import_module(f"{name}.ops.blob_fused")
     topk = importlib.import_module(f"{name}.ops.topk")
+    combo = importlib.import_module(f"{name}.ops.combo_fused")
     return {"B2": bf.blob_response_fused, "B3": topk.row_topk,
             "B4": topk.query_select_topk, "B5": bf.circularity_fused,
+            "B6": combo.combo_chain, "E5": topk.row_topk_blk,
             "cuda": importlib.import_module(f"{name}.ops.cuda"), "root": str(root)}
 
 
@@ -1258,6 +1258,20 @@ def _ptxas_of(o, r, dr=None) -> str:
             for ln in K.report(_blob_lib(o, r, dr)).splitlines()
             if "stack frame" in ln or "registers" in ln]
     return "; ".join(keep) or "not in the build's ptxas report"
+
+
+def _ptxas_entry(fragment: str) -> str:
+    """The -Xptxas -v registers and spill lines of every kernel of the one
+    library whose mangled name holds ``fragment``."""
+    from vision_processor_tpu_torch.ops import cuda as K
+
+    found, entry = [], None
+    for ln in K.report(Path(K.BUILD_INFO["path"])).splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if fragment in ln else None
+        elif entry and ("registers" in ln or "spill" in ln):
+            found.append(ln.replace("ptxas info    :", "").strip())
+    return "; ".join(found) or "not in the build's ptxas report"
 
 
 def _blob_cases(torch, flat):
@@ -1613,10 +1627,11 @@ def _check_b5(torch, calls, calls_f1, before):
     return res
 
 
-def _check_b6(torch, calls):
-    """Bit-equality with the plain version, or else the fallback: scores
-    within 4 ulp, winners equal except where two combos lie within 4 ulp,
-    cos/sin/x/y within 1e-5 relative."""
+def _check_b6(torch, calls, before):
+    """Bit-equality with the plain version in all six outputs, and with the
+    other checkout's B6 where ``before`` has it; no fallback tolerance. On
+    slice 2's call (A=128) and on A=512 with exact ties and invalid
+    anchors; both timed, in turns with the other checkout's B6."""
     import vision_processor_tpu_torch.ops.combo_fused as CF
 
     chain = CF.combo_chain.__wrapped__
@@ -1635,40 +1650,50 @@ def _check_b6(torch, calls):
     av4[: 2 * a: 3] = False
     cases = [(f"A={a} (slice)", (maps, anchor_pos, ring_count, anchor_valid)),
              (f"A={4 * a} (ties, invalid)", (maps4, pos4, rc4, av4))]
-    held, err, times = "bit-equal", 0.0, {}
+    times = {}
     for label, (mp, ap, rc, av) in cases:
-        got = chain(mp, ap, rc, av, combo_max, pat, pbar)
-        want = CF._combo_chain_plain(mp, ap, rc, av, combo_max, pat, pbar)
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            held = "4-ulp fallback"
-            same = got[5] == want[5]
-            near = ulp_close(torch, got[0][~same], want[0][~same], 4)
-            ok = ulp_close(torch, got[0], want[0], 4) and near and all(
-                bool(torch.allclose(g[same], w[same], rtol=1e-5, atol=0))
-                for g, w in zip(got[1:5], want[1:5]))
-            if not ok:
-                fail(f"combo_chain {label} disagrees with its plain version")
-        err = max(err, max(float((g.float() - w.float()).abs().max())
-                           for g, w in zip(got[:5], want[:5])))
+        args = (mp, ap, rc, av, combo_max, pat, pbar)
+        got = chain(*args)
+        if not all(torch.equal(g, w) for g, w in zip(got, CF._combo_chain_plain(*args))):
+            fail(f"combo_chain {label} is not bit-equal to its plain version")
+        if before is not None and not all(
+                torch.equal(g, w) for g, w in zip(got, before["B6"](*args))):
+            fail(f"combo_chain {label} is not bit-equal to {before['root']}'s B6")
         wins = int((got[0] > 0).sum())
         n = mp.shape[1]
-        b_ms, b_by = bound(4 * 12 * n * c + 13 * n + 4 * c + 24 * n, 120 * n * c)
-        print(f"B6 combo_chain {label}, C={c}: {held}, {wins} anchors with a winner; "
-              f"bound {b_ms:.6f} ms ({b_by})")
-        times[label] = (
-            time_fn(torch, lambda: chain(mp, ap, rc, av, combo_max, pat, pbar)),
-            time_fn(torch, lambda: CF._combo_chain_plain(mp, ap, rc, av, combo_max,
-                                                         pat, pbar)))
-    for label, (t_k, t_p) in times.items():
-        print(f"B6 combo_chain {label}: kernel {_fmt(t_k)} vs plain {_fmt(t_p)}")
-    t_k, t_p = times[cases[0][0]]
-    print(f"B6: max abs err {err:.3g} (tol: bit-equal, else the 4-ulp fallback); "
-          f"no library call")
-    # bytes: the 12 maps, anchor position / ring count / validity, the
-    # combo table, 6 outputs; about 120 float32 operations per pair
-    return _result("combo_chain", "vision_processor_tpu_torch/csrc/combo.cu",
-                   "vision_processor_tpu/ops/combo_pallas.py:62", err, t_k, t_p,
-                   bound(4 * 12 * a * c + 13 * a + 4 * c + 24 * a, 120 * a * c), None)
+        # bytes: the 12 maps, anchor position / ring count / validity, the
+        # combo table, 6 outputs; about 120 float32 operations per pair
+        bnd = bound(4 * 12 * n * c + 13 * n + 4 * c + 24 * n, 120 * n * c)
+        t_k, t_old = _time_in_turns(torch, lambda: chain(*args),
+                                    lambda: before["B6"](*args), before)
+        t_p = time_fn(torch, lambda: CF._combo_chain_plain(*args))
+        blocks, threads = CF.combo_plan(n, c)
+        print(f"B6 combo_chain {label}, C={c}: bit-equal (six outputs)"
+              f"{'' if before is None else ' and to ' + before['root'] + chr(39) + 's B6'}, "
+              f"{wins} anchors with a winner; {blocks} blocks of {threads} threads; kernel "
+              f"{_fmt(t_k)}{_before_text(t_old, before)}; plain {_fmt(t_p)}; bound "
+              f"{bnd[0]:.6f} ms ({bnd[1]})")
+        times[label] = {"t_k": t_k, "t_before": t_old, "t_p": t_p, "bound": bnd,
+                        "plan": [blocks, threads]}
+    # what an anchor's block costs: one anchor alone (latency), and every
+    # anchor gated off (one thread runs combo 0's chain: launch and gate)
+    args = (maps[:, :1].contiguous(), anchor_pos[:1].contiguous(),
+            torch.full_like(ring_count[:1], 8), torch.ones_like(anchor_valid[:1]),
+            combo_max, pat, pbar)
+    off = (maps, anchor_pos, ring_count, torch.zeros_like(anchor_valid), combo_max, pat,
+           pbar)
+    split = {"A=1 (one block)": time_fn(torch, lambda: chain(*args)),
+             f"A={a}, every anchor gated off": time_fn(torch, lambda: chain(*off))}
+    print("B6 split: " + "; ".join(f"{k} {_fmt(t)}" for k, t in split.items()))
+    times["split"] = split
+    print(f"B6 ptxas: {_ptxas_entry('combo_chain_kernel')}")
+    print("B6: max abs err 0 (tol: bit-equal); no library call")
+    main = times[cases[0][0]]
+    res = _result("combo_chain", "vision_processor_tpu_torch/csrc/combo.cu",
+                  "vision_processor_tpu/ops/combo_pallas.py:62", 0.0, main["t_k"],
+                  main["t_p"], main["bound"], None)
+    res["times"] = times
+    return res
 
 
 def _check_b7(torch, calls):
@@ -1903,15 +1928,24 @@ def _check_e1(torch, contract):
     return res
 
 
-def _check_e5(torch, contract):
+def _check_e5(torch, contract, before):
     """E5 at every rows-per-block of the sweep, bit-equal (values and
-    indices) to its plain version and value-equal to B3, timed beside B3
-    at the same shapes; the record row is (540, 962), m 19, 64 rows a
-    block."""
+    indices) to its plain version and, where ``before`` has it, to the
+    other checkout's E5, value-equal to B3, timed beside B3 at the same
+    shapes and in turns with the other checkout's E5; then rows too dense
+    for the kernel's candidate buffer (ties, a full row) at m up to 40. The
+    record row is (540, 962), m 19, 64 rows a block."""
     import vision_processor_tpu_torch.ops.topk as T
 
     blk_topk = getattr(T.row_topk_blk, "__wrapped__", T.row_topk_blk)
     row_topk = T.row_topk.__wrapped__
+    regs, most = T.blk_attrs()
+    plan = {blk: T.blk_warps(blk, regs) for blk in E5_BLKS}
+    print(f"E5 row_topk_blk_warps: {regs} registers a thread, at most {most} threads a "
+          f"block (runtime); ptxas {_ptxas_entry('row_topk_blk_warps')}; warps a block "
+          + ", ".join(f"blk {b} {w}" for b, w in plan.items()))
+    if any(32 * w > most for w in plan.values()):
+        fail(f"row_topk_blk: a plan {plan} asks for more than {most} threads a block")
     rows = []
     for shape, x in contract["e5"].items():
         for m in E5_MS:
@@ -1920,20 +1954,49 @@ def _check_e5(torch, contract):
             bv, bi = row_topk(x, m)
             if not (torch.equal(bv, pv) and torch.equal(bi[valid], pi[valid])):
                 fail(f"B3 and E5's plain version differ at {shape} m={m}")
-            times = {}
+            times, before_t = {}, {}
             for blk in E5_BLKS:
                 kv, ki = blk_topk(x, m, blk)
                 if not (torch.equal(kv, pv) and torch.equal(ki, pi)):
                     fail(f"row_topk_blk {shape} m={m} blk={blk} disagrees with its plain "
                          f"version")
-                times[blk] = time_fn(torch, lambda: blk_topk(x, m, blk))
+                if before is not None and not _same_slots(
+                        torch, (kv, ki), before["E5"](x, m, blk)):
+                    fail(f"row_topk_blk {shape} m={m} blk={blk}: a slot differs from "
+                         f"{before['root']}'s E5")
+                times[blk], before_t[blk] = _time_in_turns(
+                    torch, lambda: blk_topk(x, m, blk), lambda: before["E5"](x, m, blk),
+                    before)
             t_b3 = time_fn(torch, lambda: row_topk(x, m))
-            rows.append((shape, m, times, t_b3))
+            rows.append((shape, m, times, t_b3, before_t))
             print(f"E5 row_topk_blk {shape} m={m}: bit-equal (values, indices); "
-                  + ", ".join(f"blk {b} {_fmt(t)}" for b, t in times.items())
-                  + f"; B3 row_topk (one block a row) {_fmt(t_b3)}")
+                  + ", ".join(f"blk {b} {_fmt(t)}{_before_text(before_t[b], before)}"
+                              for b, t in times.items())
+                  + f"; B3 row_topk (one warp a row) {_fmt(t_b3)}")
+    shape = E5_SHAPES[-1]
+    dense = contract["e5"][shape].clone()
+    dense[2, ::7] = 2.0  # 138 tied entries
+    dense[5] = torch.linspace(0.0, 1.0, shape[1], device=dense.device).flip(0)
+    dense[6, :40] = 3.0
+    for m in (1, 19, 32, 40):
+        want = T.select_m(dense, m)
+        for blk in E5_BLKS:
+            if not _same_slots(torch, blk_topk(dense, m, blk), want):
+                fail(f"row_topk_blk dense rows m={m} blk={blk}: a slot differs from "
+                     f"select_m's")
+    print(f"E5 dense rows (ties, a full row) at m 1, 19, 32, 40: every slot equal to "
+          f"select_m's at blk {E5_BLKS}")
     shape, m, blk = (540, 962), 19, 64
     x = contract["e5"][shape]
+    # what a block of 64 rows costs: m = 1, no entry above -inf, one block
+    # alone, one row alone (one warp's latency)
+    empty = torch.full_like(x, float("-inf"))
+    split = {"m=1": time_fn(torch, lambda: blk_topk(x, 1, blk)),
+             "every entry -inf": time_fn(torch, lambda: blk_topk(empty, m, blk)),
+             "64 rows (one block)": time_fn(torch, lambda: blk_topk(x[:64], m, blk)),
+             "1 row (one warp)": time_fn(torch, lambda: blk_topk(x[:1], m, blk))}
+    print(f"E5 split at {shape} blk={blk}, m={m} unless named: "
+          + "; ".join(f"{k} {_fmt(t)}" for k, t in split.items()))
     t_k = dict((r[1], r[2]) for r in rows if r[0] == shape)[m][blk]
     t_p = time_fn(torch, lambda: T.select_m(x, m))
     t_l = time_fn(torch, lambda: torch.topk(x, m, dim=1))
@@ -1945,7 +2008,10 @@ def _check_e5(torch, contract):
     res["sweep"] = [{"shape": list(r[0]), "m": r[1],
                      "ms": {str(b): t[1] for b, t in r[2].items()},
                      "busy_ms": {str(b): t[0] for b, t in r[2].items()},
+                     "before_busy_ms": {str(b): None if t is None else t[0]
+                                        for b, t in r[4].items()},
                      "b3_ms": r[3][1], "b3_busy_ms": r[3][0]} for r in rows]
+    res["warps"] = {"registers": regs, "max_threads": most, "plan": plan, "split": split}
     return res
 
 
@@ -1968,12 +2034,12 @@ def check_kernels(torch, s1: dict, s2: dict, s3: dict, s4: dict, s4f1: dict,
         ("B3", _check_b3(torch, c1["row_topk"], s4f1["calls"]["row_topk"], before)),
         ("B4", _check_b4(torch, c1["query_select_topk"], before)),
         ("B5", _check_b5(torch, c2["circularity_fused"], b2_f1, before)),
-        ("B6", _check_b6(torch, c2["combo_chain"])),
+        ("B6", _check_b6(torch, c2["combo_chain"], before)),
         ("B7", _check_b7(torch, c2["gather_corners"])),
         ("E1", _check_e1(torch, contracts)),
         ("E2", _check_e2e3(torch, c4["resample_packed"], s4f1["calls"]["resample_packed"])),
         ("E4", _check_e4(torch, c3["corner_stack"])),
-        ("E5", _check_e5(torch, contracts)),
+        ("E5", _check_e5(torch, contracts, before)),
     ]
 
 
@@ -1983,8 +2049,8 @@ def main() -> None:
     parser.add_argument("--profile", action="store_true")
     parser.add_argument("--out", type=Path, default=OUT)
     parser.add_argument("--before", type=Path, default=None,
-                        help="another checkout of the repository whose B2-B5 are "
-                             "timed in turns with this one's (B3 and B4 also held "
+                        help="another checkout of the repository whose B2-B6 and E5 "
+                             "are timed in turns with this one's (B3, B4, B6 and E5 held "
                              "equal to this one's in every slot)")
     args = parser.parse_args()
     OUT = args.out.resolve()
@@ -2072,6 +2138,8 @@ def main() -> None:
         "e5_sweep": dict(results)["E5"]["sweep"],
         "b2_b5_times": {row: dict(results)[row]["times"] for row in ("B2", "B5")},
         "b3_b4_times": {row: dict(results)[row]["times"] for row in ("B3", "B4")},
+        "b6_times": dict(results)["B6"]["times"],
+        "e5_warps": dict(results)["E5"]["warps"],
         "b2_events_per_call": dict(results)["B2"]["events"],
         "slices": {label: {k: v for k, v in s.items() if k not in skip}
                    for label, s in (("slice 1", s1), ("slice 2", s2), ("slice 3", s3),

@@ -18,6 +18,8 @@ metres), which magnifies those ulps to 1e-4 relative of the score.
 """
 from __future__ import annotations
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -171,6 +173,51 @@ def test_combo_chain_all_invalid_anchor():
         np.testing.assert_allclose(g, w, rtol=1e-6)
 
 
+def test_combo_chain_matches_jax_tail_anchors():
+    """A non-round A (72: a 64-anchor TPU block and a tail of 8), exact
+    ties between combos 7 and 40 on every fifth anchor, random ring counts
+    and invalid anchors, within the random maps' tolerance."""
+    maps, anchor_pos, ring_count, anchor_valid = _random_inputs(72, seed=8)
+    maps[:, ::5, 40] = maps[:, ::5, 7]
+    ring_count[::5] = 8
+    anchor_valid[::5] = True
+    anchor_valid[1::6] = False
+    inputs = (maps, anchor_pos, ring_count, anchor_valid)
+    got = _port(*inputs)
+    want = _jax(*inputs)
+    _check(got, want, ("ulp", 4))
+    ok = (ring_count >= 4) & anchor_valid
+    assert (~ok).any() and (got[0].numpy()[~ok] == 0).all()
+    assert (got[5].numpy()[~ok] == 0).all()
+    tied = np.zeros(72, bool)
+    tied[::5] = True
+    assert (got[5].numpy()[tied] != 40).all()  # a tie goes to the lower combo
+
+
+# every A the smoke and the card tests launch, a tail A, and C of the
+# default ring beside combo counts off the warp grid and above MAX_THREADS
+@pytest.mark.parametrize("a", [1, 33, 128, 130, 512])
+@pytest.mark.parametrize("c", [C, 1, 31, 33, 513, 1000])
+def test_combo_plan_fits_a_block(a, c):
+    blocks, threads = CF.combo_plan(a, c)
+    assert blocks == a  # one block per anchor
+    assert threads % 32 == 0 and 32 <= threads <= CF.MAX_THREADS <= 1024
+    # the launch bound holds a thread to 65536 / MAX_THREADS registers
+    assert threads * (65536 // CF.MAX_THREADS) <= 65536
+    assert threads == min(-(-c // 32) * 32, CF.MAX_THREADS)  # every combo a thread
+    if c == C:
+        assert threads == 288  # 9 warps, one combo each
+
+
+def test_combo_plan_matches_the_kernel_bound():
+    """MAX_THREADS is the kernel's launch bound, kMaxThreads."""
+    src = (Path(CF.__file__).parents[1] / "csrc" / "combo.cu").read_text()
+    assert f"constexpr int kMaxThreads = {CF.MAX_THREADS};" in src
+    assert "__launch_bounds__(kMaxThreads)" in src
+    with pytest.raises(ValueError):
+        CF.combo_plan(4, 0)
+
+
 def test_use_combo_kernel_switch(monkeypatch):
     """Read at call time; only a CUDA tensor ever takes the kernel."""
     cpu = torch.zeros(1)
@@ -219,15 +266,13 @@ def test_detector_fused_branch_matches_unfused(monkeypatch):
     np.testing.assert_allclose(got["pos"].numpy(), want["pos"].numpy(), atol=1e-3)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("a", [128, 512])
-def test_combo_chain_kernel_on_card(a, cuda_device):
-    """Bit-equal to the plain version on the card, with tied combos and
-    anchors with no qualifying combo."""
-    maps, anchor_pos, ring_count, anchor_valid = _ring_inputs(a)
-    maps[:, ::5, 40] = maps[:, ::5, 7]  # exact ties: combo 7 must win
-    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)  # noqa: E731
-    args = (t(maps), t(anchor_pos), t(ring_count), t(anchor_valid), t(COMBO_MAX), PAT, PBAR)
+def _card_args(inputs, device):
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    maps, anchor_pos, ring_count, anchor_valid = inputs
+    return (t(maps), t(anchor_pos), t(ring_count), t(anchor_valid), t(COMBO_MAX), PAT, PBAR)
+
+
+def _assert_kernel_equals_plain(args):
     before = cuda.LAUNCHES["combo_chain"]
     got = CF.combo_chain(*args)
     torch.cuda.synchronize()
@@ -235,3 +280,29 @@ def test_combo_chain_kernel_on_card(a, cuda_device):
     want = CF._combo_chain_plain(*args)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a", [1, 33, 128, 512])
+def test_combo_chain_kernel_on_card(a, cuda_device):
+    """Bit-equal to the plain version on the card, with tied combos and
+    anchors with no qualifying combo; A = 1 and 33 are tails of the TPU's
+    64-anchor blocks (A = 1 is one gated-off anchor)."""
+    maps, anchor_pos, ring_count, anchor_valid = _ring_inputs(a)
+    maps[:, ::5, 40] = maps[:, ::5, 7]  # exact ties: combo 7 must win
+    _assert_kernel_equals_plain(_card_args((maps, anchor_pos, ring_count, anchor_valid),
+                                           cuda_device))
+
+
+@pytest.mark.cuda
+def test_combo_chain_kernel_all_gated_off_on_card(cuda_device):
+    """Every anchor fails the gate (ring count below 4 or invalid): score 0,
+    combo 0 and combo 0's orientation and position, as in the plain
+    version."""
+    maps, anchor_pos, ring_count, anchor_valid = _ring_inputs(128)
+    ring_count[::2] = 3
+    anchor_valid[1::2] = False
+    got = _assert_kernel_equals_plain(_card_args((maps, anchor_pos, ring_count,
+                                                  anchor_valid), cuda_device))
+    assert bool((got[0] == 0).all()) and bool((got[5] == 0).all())

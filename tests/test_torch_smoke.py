@@ -1,9 +1,9 @@
 """chip_smoke.py's loader of another checkout (``--before DIR``), on the CPU.
 
-The smoke times B2-B5 of another checkout through that checkout's own
+The smoke times B2-B6 and E5 of another checkout through that checkout's own
 package, imported under another name. Here the checkout is this one: its
 package, loaded so, must be a second copy (its own modules and launch
-counts) whose B2-B5 give what this package's give, bit for bit.
+counts) whose B2-B6 and E5 give what this package's give, bit for bit.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from vision_processor_tpu_torch.ops import blob_fused as BF
+from vision_processor_tpu_torch.ops import combo_fused as CF
 from vision_processor_tpu_torch.ops import cuda
 from vision_processor_tpu_torch.ops import topk as T
 
@@ -65,3 +66,26 @@ def test_before_topk_kernels_are_a_second_copy(smoke):
         got = before["B4"](qxy, r2, bxy, rank, m=4, by_rank=by_rank)
         want = T.query_select_topk(qxy, r2, bxy, rank, m=4, by_rank=by_rank)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_before_b6_e5_are_a_second_copy(smoke):
+    before = smoke.before_kernels(ROOT)
+    assert before["B6"] is not CF.combo_chain and before["E5"] is not T.row_topk_blk
+    assert before["B6"].__module__ == "vptpu_before.ops.combo_fused"
+    assert before["E5"].__module__ == "vptpu_before.ops.topk"
+
+    rng = np.random.default_rng(7)
+    a, c = 9, 40
+    maps = torch.from_numpy(rng.normal(0, 50, (12, a, c)).astype(np.float32))
+    pos = torch.from_numpy(rng.normal(0, 500, (a, 2)).astype(np.float32))
+    rc = torch.from_numpy(rng.integers(0, 9, a).astype(np.int32))
+    valid = torch.from_numpy(rng.random(a) > 0.3)
+    cmax = torch.from_numpy(rng.integers(0, 8, c).astype(np.int32))
+    pat = rng.normal(0, 50, (5, 2)).astype(np.float32)
+    args = (maps, pos, rc, valid, cmax, pat, pat.sum(axis=0))
+    assert all(torch.equal(a, b) for a, b in zip(before["B6"](*args), CF.combo_chain(*args)))
+    x = rng.normal(size=(12, 50)).astype(np.float32)
+    x[rng.uniform(size=x.shape) < 0.8] = -np.inf
+    x = torch.from_numpy(x)
+    for a, b in zip(before["E5"](x, 6, 8), T.row_topk_blk(x, 6, 8)):
+        assert torch.equal(a, b)

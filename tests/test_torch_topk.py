@@ -217,15 +217,51 @@ def _blk_case(h, w, seed):
     return x
 
 
+# registers a thread: the range of the kernels of csrc/topk.cu (B3's lists
+# take 80 to 206 on sm_90a), the 64 of E5's launch bound, and the extremes
+@pytest.mark.parametrize("blk", [1, 5, 8, 32, 64, 100])
+@pytest.mark.parametrize("regs", [1, 32, 40, 64, 72, 80, 127, 206, 255])
+def test_blk_warps_fit_a_block(blk, regs):
+    """E5's warps a block: one a row up to 32, as many as 65,536 registers
+    hold (allocated 8 a thread at a time), never more than 1,024 threads."""
+    w = T.blk_warps(blk, regs)
+    alloc = -(-regs // 8) * 8
+    assert 1 <= w <= min(blk, 32)
+    assert 32 * w <= T.MAX_BLOCK_THREADS == 1024
+    assert 32 * w * alloc <= T.REGS_PER_SM == 65536
+    assert w == min(blk, 32) or 32 * (w + 1) * alloc > 65536  # no warp left out
+    if regs <= 64:
+        assert w == min(blk, 32)
+
+
+def test_blk_warps_refuses():
+    for blk, regs in ((0, 64), (8, 0), (8, 256)):
+        with pytest.raises(ValueError):
+            T.blk_warps(blk, regs)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(432, 770), (540, 962)])
+@pytest.mark.parametrize("shape", [(432, 770), (540, 962), (40, 5)])
 def test_row_topk_blk_matches_plain_on_card(cuda_device, shape):
+    """Every slot equal to select_m's at every blk of the sweep, at the
+    contract's m, at m = 1 and 32 and above 32, on the contract's shapes
+    (a tie row and an exhausted row included) and on rows of width 5."""
     x = torch.from_numpy(_blk_case(*shape, seed=shape[0])).to(cuda_device)
-    for m in (6, 16, 19):
+    for m in (1, 6, 16, 19, 32, 40):
         pv, pi = T.select_m(x, m)
         for blk in (8, 32, 64):
             kv, ki = T.row_topk_blk(x, m, blk)
             assert torch.equal(kv, pv) and torch.equal(ki, pi), (m, blk)
+
+
+@pytest.mark.cuda
+def test_row_topk_blk_plan_on_card(cuda_device):
+    """The runtime's registers and thread limit of E5's kernel admit the
+    warps blk_warps gives at every blk of the sweep."""
+    regs, most = T.blk_attrs()
+    assert regs <= 64  # the kernel's launch bound: 32 warps fit
+    for blk in (8, 32, 64):
+        assert 32 * T.blk_warps(blk, regs) <= most
 
 
 # every list bucket of csrc/topk.cu, the m between them, and m above the

@@ -410,60 +410,148 @@ void launch_queries(const float* q, const float* r2, const float* b, const float
 }
 
 // Replaces experiments/rowtopk_blk.py:row_topk_blk (E5): B3's function
-// with blk rows per block, one warp per row (min(blk, 32) warps a block,
-// each taking every nw-th row of the block's blk). The TPU experiment
-// swept the rows per block to amortise the per-block dispatch; here the
-// same sweep sets how many rows share one block's launch and residency.
-// A warp keeps no copy of its row: pass j scans the row (from L1/L2) for
-// the best element strictly after pass j-1's winner in the (value
-// descending, index ascending) order, which is the element _select_m's
-// masking leaves as the maximum. Once a pass finds only -inf, the row is
-// exhausted and every later slot is (-inf, 0), as _select_m's are (all
-// lanes -inf, the lowest index wins). Bound: latency, as B3's.
-__global__ void row_topk_blk_kernel(const float* __restrict__ x, int R, int L,
-                                    int m, int blk, float* __restrict__ vals,
-                                    int* __restrict__ idx) {
-  int warp = threadIdx.x >> 5;
+// with blk rows a block. The TPU experiment swept the rows per block to
+// amortise the per-block dispatch; here the same sweep sets how many rows
+// share one block's launch and residency, so at blk = 64 the (540, 962)
+// map runs on 9 blocks, 9 of the card's 132 SMs, each of which must read
+// its 64 rows (246 KB) through its own load path: on an H100 such a block
+// takes as long when no entry is above -inf as on the contract's map, so
+// those reads, not the selection, bound it. B3's register lists would add
+// O(M) instructions for every element a lane inserts and about 200
+// registers a thread at M = 32 (9 warps a block).
+// Design: a block of nw warps (ops/topk.py blk_warps: one a row, up to 32)
+// takes rows blockIdx.x * blk .. + blk - 1, warp w the rows w, w + nw, ...
+// of them, asking L1 for its next row before it ranks this one. A warp
+// reads its row once, a lane's kBlkLoads elements at a time, and compacts
+// the entries above -inf into a 32-slot buffer in shared memory by
+// ballots (a ballot that finds none costs three instructions);
+// if the row has at most 32 such entries, as the contract's rows (about
+// 1500 valid entries a map) have, lane j ranks candidate j by counting the
+// candidates that beat it in the (value descending, index ascending)
+// order and writes it to the slot of its rank: the order is total, so the
+// ranks are the slots. A denser row takes m passes instead, each the best
+// element strictly after the last winner in that order (a lane's elements
+// from L1). The exhausted slots are B3's (fill_exhausted). Any m takes the
+// same kernel, which holds a thread to 64 registers, so 32 warps fit.
+constexpr int kBlkMaxWarps = 32;
+constexpr int kBlkLoads = 16;  // a lane's loads a round: 512 elements a round
+
+// Asks L1 for the lines of a row that the warp takes next, one line a lane
+// (the last lane's holds the row's last element).
+__device__ __forceinline__ void prefetch_row(const float* xr, int n) {
+  for (int e = (threadIdx.x & 31) * 32; e < n + 31; e += 32 * 32)
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(xr + min(e, n - 1)));
+}
+
+// Compacts score(0 .. n-1)'s entries above -inf (never NaN) into the first
+// 32 slots of s_v / s_i, in index order; returns how many there are.
+template <class Score>
+__device__ __forceinline__ int compact(const Score& score, int n, float* s_v, int* s_i) {
   int lane = threadIdx.x & 31;
-  int nw = blockDim.x >> 5;
-  for (int rr = warp; rr < blk; rr += nw) {
-    long long row = (long long)blockIdx.x * blk + rr;
-    if (row >= R) return;
-    const float* xr = x + row * L;
-    float pv = CUDART_INF_F;  // the previous winner; +inf, -1: none yet
-    int pi = -1;
-    bool exhausted = false;
-    for (int j = 0; j < m; ++j) {
-      float bv = -CUDART_INF_F;
-      int bi = kNoIndex;
-      if (!exhausted) {
-        for (int k = lane; k < L; k += 32) {
-          float v = __ldg(xr + k);
-          bool after = v < pv || (v == pv && k > pi);
-          if (after && better(v, k, bv, bi)) {
-            bv = v;
-            bi = k;
-          }
-        }
-        for (int off = 16; off > 0; off >>= 1) {
-          float ov = __shfl_down_sync(kFull, bv, off);
-          int oi = __shfl_down_sync(kFull, bi, off);
-          if (better(ov, oi, bv, bi)) {
-            bv = ov;
-            bi = oi;
-          }
-        }
-        bv = __shfl_sync(kFull, bv, 0);
-        bi = __shfl_sync(kFull, bi, 0);
-        exhausted = bv == -CUDART_INF_F;
-      }
-      if (lane == 0) {
-        vals[row * m + j] = exhausted ? -CUDART_INF_F : bv;
-        idx[row * m + j] = exhausted ? 0 : bi;
-      }
-      pv = bv;
-      pi = bi;
+  unsigned below = (1u << lane) - 1u;
+  int count = 0;
+  for (int k0 = 0; k0 < n; k0 += 32 * kBlkLoads) {
+    float v[kBlkLoads];
+#pragma unroll
+    for (int u = 0; u < kBlkLoads; ++u) {
+      int k = k0 + 32 * u + lane;
+      v[u] = k < n ? score(k) : -CUDART_INF_F;
     }
+#pragma unroll
+    for (int u = 0; u < kBlkLoads; ++u) {
+      bool ok = v[u] > -CUDART_INF_F;
+      unsigned bal = __ballot_sync(kFull, ok);
+      if (bal) {
+        int slot = count + __popc(bal & below);
+        if (ok && slot < 32) {
+          s_v[slot] = v[u];
+          s_i[slot] = k0 + 32 * u + lane;
+        }
+        count += __popc(bal);
+      }
+    }
+  }
+  __syncwarp();
+  return count;
+}
+
+// The top min(count, m) of count <= 32 candidates, lane j ranking the j-th.
+// Returns the number of winners; min_win is the lowest candidate index.
+__device__ __forceinline__ int rank_candidates(const float* s_v, const int* s_i, int count,
+                                               int m, float* vr, int* ir, int& min_win) {
+  int lane = threadIdx.x & 31;
+  float v = lane < count ? s_v[lane] : -CUDART_INF_F;
+  int i = lane < count ? s_i[lane] : kNoIndex;
+  int rank = 0;
+  for (int c = 0; c < count; ++c) rank += better(s_v[c], s_i[c], v, i);
+  if (lane < count && rank < m) {
+    vr[rank] = v;
+    ir[rank] = i;
+  }
+  min_win = (int)__reduce_min_sync(kFull, (unsigned)i);
+  return min(count, m);
+}
+
+// A dense row: m passes, each the warp's best element strictly after the
+// last winner. Returns the number of winners; lowers min_win to the lowest.
+template <class Score>
+__device__ __forceinline__ int rescan(const Score& score, int n, int m, float* vr, int* ir,
+                                      int& min_win) {
+  int lane = threadIdx.x & 31;
+  float pv = CUDART_INF_F;  // the last winner; (+inf, -1): none yet
+  int pi = -1;
+  for (int j = 0; j < m; ++j) {
+    float bv = -CUDART_INF_F;
+    int bi = kNoIndex;
+    for (int k = lane; k < n; k += 32) {
+      float v = score(k);
+      bool after = v < pv || (v == pv && k > pi);
+      if (after && better(v, k, bv, bi)) {
+        bv = v;
+        bi = k;
+      }
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      float ov = __shfl_xor_sync(kFull, bv, d);
+      int oi = __shfl_xor_sync(kFull, bi, d);
+      if (better(ov, oi, bv, bi)) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+    if (!(bv > -CUDART_INF_F)) return j;  // warp-uniform: every lane holds the best
+    if (lane == 0) {
+      vr[j] = bv;
+      ir[j] = bi;
+    }
+    min_win = min(min_win, bi);
+    pv = bv;
+    pi = bi;
+  }
+  return m;
+}
+
+__global__ void __launch_bounds__(32 * kBlkMaxWarps)
+    row_topk_blk_warps(const float* __restrict__ x, int R, int L, int m, int blk,
+                       float* __restrict__ vals, int* __restrict__ idx) {
+  __shared__ float s_v[kBlkMaxWarps][32];
+  __shared__ int s_i[kBlkMaxWarps][32];
+  int warp = threadIdx.x >> 5;
+  int nw = blockDim.x >> 5;
+  int first = blockIdx.x * blk;
+  int end = min(R, first + blk);
+  for (int row = first + warp; row < end; row += nw) {
+    if (row + nw < end) prefetch_row(x + (size_t)(row + nw) * L, L);
+    RowScore score{x + (size_t)row * L};
+    float* vr = vals + (size_t)row * m;
+    int* ir = idx + (size_t)row * m;
+    int count = compact(score, L, s_v[warp], s_i[warp]);
+    int min_win = kNoIndex;
+    int n_win = count <= 32 ? rank_candidates(s_v[warp], s_i[warp], count, m, vr, ir, min_win)
+                            : rescan(score, L, m, vr, ir, min_win);
+    fill_exhausted(score, L, n_win, m, min_win, vr, ir);
+    __syncwarp();  // the buffer is the warp's next row's
   }
 }
 
@@ -517,14 +605,27 @@ extern "C" int vp_query_topk(const float* q, const float* r2, const float* b,
   return (int)cudaGetLastError();
 }
 
-extern "C" int vp_row_topk_blk(const float* x, int R, int L, int m, int blk,
+// E5 at blk rows a block over warps a block (ops/topk.py blk_warps: 1 to
+// min(blk, 32)), any m; a launch the SM cannot hold returns its error.
+extern "C" int vp_row_topk_blk(const float* x, int R, int L, int m, int blk, int warps,
                                float* vals, int* idx, void* stream) {
-  if (blk < 1) return (int)cudaErrorInvalidValue;
+  if (blk < 1 || warps < 1 || warps > blk || warps > kBlkMaxWarps)
+    return (int)cudaErrorInvalidValue;
   if (R > 0 && m > 0) {
-    int warps = blk < 32 ? blk : 32;
-    long long blocks = ((long long)R + blk - 1) / blk;
-    row_topk_blk_kernel<<<(unsigned)blocks, 32 * warps, 0, (cudaStream_t)stream>>>(
+    int blocks = R / blk + (R % blk != 0);
+    row_topk_blk_warps<<<blocks, 32 * warps, 0, (cudaStream_t)stream>>>(
         x, R, L, m, blk, vals, idx);
   }
   return (int)cudaGetLastError();
+}
+
+// E5's kernel: out[0] its registers a thread, out[1] the most threads a
+// block it can launch with, as the runtime reports them.
+extern "C" int vp_row_topk_blk_attrs(int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, row_topk_blk_warps);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = attr.maxThreadsPerBlock;
+  return 0;
 }

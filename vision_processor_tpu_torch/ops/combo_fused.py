@@ -8,8 +8,9 @@ orientation sums and slot positions, an elementwise chain computes the
 normalised orientation, the candidate position, the five slot offset
 scores and their min, and an argmax keeps one winner per anchor.
 ``combo_chain`` runs that chain and argmax in one CUDA kernel on the card
-(``csrc/combo.cu``); ``_combo_chain_plain`` is its plain PyTorch version,
-used for CPU tensors and held against the kernel on the card.
+(``csrc/combo.cu``: one block per anchor, one thread per combo, launched
+as ``combo_plan`` says); ``_combo_chain_plain`` is its plain PyTorch
+version, used for CPU tensors and held against the kernel on the card.
 
 Both do the chain op for op in the JAX package's order, with true
 divisions and a correctly rounded 1 / sqrt for the inverse norm, so near-
@@ -29,6 +30,19 @@ from . import cuda
 # the 12 matmul outputs, in the order of ``combo_chain``'s ``maps``
 MAPS = ("o_cos", "o_sin", "sum_x", "sum_y", "p5x1", "p5x2", "p5x3", "p5x4",
         "p5y1", "p5y2", "p5y3", "p5y4")
+# threads a block at most: csrc/combo.cu kMaxThreads, the kernel's launch
+# bound, which holds a thread to 65536 / MAX_THREADS registers
+MAX_THREADS = 512
+
+
+def combo_plan(a: int, c: int) -> tuple[int, int]:
+    """(blocks, threads a block) of kernel B6 for A anchors and C combos:
+    one block per anchor, one thread per combo, C rounded up to whole warps
+    and capped at MAX_THREADS (a thread then takes every threads-th
+    combo)."""
+    if a < 0 or c < 1:
+        raise ValueError(f"combo_plan: A={a}, C={c}")
+    return a, min(-(-c // 32) * 32, MAX_THREADS)
 
 
 def use_combo_kernel(t: torch.Tensor) -> bool:
@@ -111,11 +125,12 @@ def combo_chain(maps: torch.Tensor, anchor_pos: torch.Tensor,
         raise ValueError("combo_chain: inconsistent shapes")
     pattern = np.concatenate([np.asarray(pat, np.float32).reshape(10),
                               np.asarray(pbar, np.float32).reshape(2)])
+    _, threads = combo_plan(a, c)
     outf = torch.empty((5, a), dtype=torch.float32, device=maps.device)
     outi = torch.empty((a,), dtype=torch.int32, device=maps.device)
     rc = cuda.lib().vp_combo_chain(
         maps.data_ptr(), a, c, anchor_pos.data_ptr(), ring_count.data_ptr(),
-        anchor_valid.data_ptr(), combo_max.data_ptr(), pattern.ctypes.data,
+        anchor_valid.data_ptr(), combo_max.data_ptr(), pattern.ctypes.data, threads,
         outf.data_ptr(), outi.data_ptr(), cuda.stream(maps),
     )
     cuda.check(rc, "combo_chain")

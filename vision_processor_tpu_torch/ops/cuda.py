@@ -75,16 +75,18 @@ _SIGNATURES = {
     # stack, idx, n_out, out, stream
     "vp_gather_corners": [_P, _P, _L, _P, _P],
     # maps, A, C, anchor_pos, ring_count, anchor_valid, combo_max, pattern,
-    # outf, outi, stream
-    "vp_combo_chain": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    # threads, outf, outi, stream
+    "vp_combo_chain": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     # src, mode, H, W, out, stream
     "vp_corner_stack": [_P, _I, _I, _I, _P, _P],
     # src, mode, fmt, H, W, px, py, pstride, n, out, stream
     "vp_resample_packed": [_P, _I, _I, _I, _I, _P, _P, _I, _L, _P, _P],
     # src, pos, r0, out, ch, R, C, n_out, win, stream
     "vp_band_warp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, R, L, m, blk, vals, idx, stream
-    "vp_row_topk_blk": [_P, _I, _I, _I, _I, _P, _P, _P],
+    # x, R, L, m, blk, warps, vals, idx, stream
+    "vp_row_topk_blk": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # out: registers a thread, most threads a block
+    "vp_row_topk_blk_attrs": [_P],
 }
 # sources built once per call shape (ops/blob_fused.py kernel_defines),
 # and the entries their libraries may hold

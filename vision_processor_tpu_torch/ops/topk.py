@@ -18,10 +18,14 @@ kernels, one block per row or query. The plain versions used for CPU
 tensors are the JAX package's own CPU paths: ``lax.top_k`` semantics (a
 stable descending sort) for the rows and the iterative argmax for the
 queries. ``row_topk_blk`` (kernel E5, B3 at a swept number of rows per
-block, experiments/rowtopk_blk.py) is on no production path; its plain
-version is the iterative argmax.
+block, experiments/rowtopk_blk.py) is on no production path: ``blk``
+rows a block over the warps ``blk_warps`` gives, a warp a row at a time,
+any m in the one kernel; its plain version is the iterative argmax.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -67,12 +71,38 @@ def select_m(score: torch.Tensor, m: int):
     return torch.stack(vals, dim=-1), torch.stack(idxs, dim=-1)
 
 
+# an SM's (and a block's) 32-bit registers, a block's threads (sm_90)
+REGS_PER_SM = 65536
+MAX_BLOCK_THREADS = 1024
+
+
+def blk_warps(blk: int, regs: int) -> int:
+    """Warps a block of kernel E5 at ``blk`` rows a block, for a kernel of
+    ``regs`` registers a thread: one warp a row, up to 32 and no more than
+    the SM's 65,536 registers hold, allocated 8 a thread at a time. A warp
+    takes every warps-th row of its block."""
+    if blk < 1 or not 1 <= regs <= 255:
+        raise ValueError(f"blk_warps: blk {blk}, regs {regs}")
+    per_warp = 32 * (-(-regs // 8) * 8)
+    return min(blk, MAX_BLOCK_THREADS // 32, REGS_PER_SM // per_warp)
+
+
+@functools.cache
+def blk_attrs() -> tuple[int, int]:
+    """(registers a thread, most threads a block) of E5's kernel, as the
+    card's runtime reports them (the kernels built on first use)."""
+    out = (ctypes.c_int * 2)()
+    cuda.check(cuda.lib().vp_row_topk_blk_attrs(out), "row_topk_blk attributes")
+    return out[0], out[1]
+
+
 def row_topk_blk(x: torch.Tensor, m: int, blk: int):
     """Top-m of each row of ``x`` (R, L) f32 with ``blk`` rows per block
     (kernel E5, the contract of experiments/rowtopk_blk.py
     ``row_topk_blk``): (values, indices), both (R, m). B3's function with
     ``_select_m``'s exhausted slots, (-inf, 0); ``blk`` sets only how the
-    kernel's launch is cut. The plain version is ``select_m``."""
+    kernel's launch is cut (``blk_warps`` the warps of a block). The plain
+    version is ``select_m``."""
     if blk < 1:
         raise ValueError(f"row_topk_blk: blk {blk} must be positive")
     if not x.is_cuda:
@@ -81,9 +111,10 @@ def row_topk_blk(x: torch.Tensor, m: int, blk: int):
     r, l = x.shape
     if l < 1 or m < 1:
         raise ValueError(f"row_topk_blk: empty selection {tuple(x.shape)}, m={m}")
+    warps = blk_warps(blk, blk_attrs()[0])
     vals = torch.empty((r, m), dtype=torch.float32, device=x.device)
     idx = torch.empty((r, m), dtype=torch.int32, device=x.device)
-    rc = cuda.lib().vp_row_topk_blk(x.data_ptr(), r, l, m, blk, vals.data_ptr(),
+    rc = cuda.lib().vp_row_topk_blk(x.data_ptr(), r, l, m, blk, warps, vals.data_ptr(),
                                     idx.data_ptr(), cuda.stream(x))
     cuda.check(rc, "row_topk_blk")
     cuda.LAUNCHES["row_topk_blk"] += 1
