@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py            # the smoke
     python3 chip_smoke.py --profile  # + a torch.profiler breakdown of each slice
     python3 chip_smoke.py --out DIR  # long outputs (ptxas, profile, JSON) to DIR
-    python3 chip_smoke.py --before DIR  # + B2-B6 and E5 of the checkout DIR, timed in
+    python3 chip_smoke.py --before DIR  # + B2-B6, E1, E5 of the checkout DIR, timed in
                                         #   turns with this checkout's
 
 Phases (any failure exits non-zero and prints no result line):
@@ -60,6 +60,17 @@ Phases (any failure exits non-zero and prints no result line):
    0 before any geometry (frame 100 saved as the sample image), then the
    geometry packet and 10 detection frames within the same bounds, none
    sent before it (``run_idle``);
+   then the calibration paths (``run_calibration``, ``run_pair_height``):
+   the ``App`` under the default config gets field geometry without any
+   calibration for camera 0 of the rig (line corners from its true model
+   and its height in the config), calibrates on the first frame (demosaic
+   on the card, fit on the host), broadcasts the model, adopts it when the
+   bus brings it back and runs 10 detection frames within the same bounds
+   (B1-B4 as on slice 1; whether the first of them built a kernel is
+   printed); then ``MultiCamApp`` with two cameras and ``camera_height:
+   0.0`` self-calibrates both, solves the rig height from the robot both
+   see (within 5 % of the truth, the models kept on their field-plane
+   manifold) and detects within the same bounds after it;
 7. E1 and E5 at their own contracts (no production path runs them): the
    banded warp pass with window starts at its experiment's shapes, and the
    row top-k at rows-per-block 8, 32 and 64 on its experiment's shapes;
@@ -67,7 +78,11 @@ Phases (any failure exits non-zero and prints no result line):
    intermediates plus tie, exhausted-row, invalid-anchor, partial-block,
    edge, GRBG, BGR and packed-plane cases, with kernel, plain and
    library-call times and each kernel's bound; E1 and E5 beside B1 and B3
-   at the same shapes. B2 and B5 must be bit-equal to their plain versions
+   at the same shapes. E1 must be bit-equal to its plain version (NaN for
+   NaN) on its contract inputs and at its edges (integer positions, 0 and
+   win - 1, non-finite sources), with ``--before DIR`` also to DIR's E1
+   and timed in turns with it, and is split (one block, the staging alone,
+   the win-tap chain everywhere, a cold L2). B2 and B5 must be bit-equal to their plain versions
    (B2's count equal to the plain count) on the slices' maps at both
    resampling factors, at r = 2 and dr = o + r + 1, on 1x1, 3x200, 200x3
    and 37x61 maps, on a constant map and above every threshold; both are
@@ -770,10 +785,10 @@ IDLE_AFTER = 10  # detection frames once geometry has arrived
 IDLE_GROUP, IDLE_PORT = "224.99.99.61", 17611  # the App's sockets, never sent to by the smoke
 
 
-def geometry_packet(geometry, cam_id: int) -> bytes:
+def geometry_packet(geometry, cam_id: int | None) -> bytes:
     """The plain geometry (net/geometry_io.py) with camera ``cam_id``'s
-    calibration as the serialized SSL_WrapperPacket a geometry publisher
-    sends."""
+    calibration (none when ``cam_id`` is None) as the serialized
+    SSL_WrapperPacket a geometry publisher sends."""
     import dataclasses
 
     from vision_processor_tpu_torch.proto import SSL_WrapperPacket
@@ -790,6 +805,8 @@ def geometry_packet(geometry, cam_id: int) -> bytes:
         out = field.field_arcs.add()
         out.name, out.radius, out.a1, out.a2 = arc.name, arc.radius, arc.a1, arc.a2
         out.center.x, out.center.y, out.thickness = arc.center.x, arc.center.y, arc.thickness
+    if cam_id is None:
+        return pkt.SerializeToString()
     calib = next(c for c in geometry.calib if c.camera_id == cam_id)
     proto = pkt.geometry.calib.add()
     for f in dataclasses.fields(calib):
@@ -900,6 +917,411 @@ def run_idle(torch, rig) -> dict:
           f"{ball_worst:.2f} mm; launches {launches}; run {wall:.3f} s")
     return {"launches": launches, "detections": len(dets), "max_bot_err_mm": worst,
             "max_ball_err_mm": ball_worst, "run_s": wall}
+
+
+CALIB_AFTER = 10  # detection frames of the App once its calibration is adopted
+CALIB_GROUP, CALIB_PORT = "224.99.99.63", 17631  # never sent to by the smoke
+PAIR_H = 4500.0  # the pair rig's true height, mm
+PAIR_AFTER = 5  # frame-sets of the pair rig after the height is solved
+PAIR_MAX = 80  # frame-sets before the pair phase gives up
+
+
+class GeometryBus:
+    """The vision bus and a geometry publisher (geom_publisher.py) as the
+    apps' sockets see them: it holds the field geometry, absorbs every
+    calibration an app broadcasts, and hands the merged geometry to every
+    socket through its receive handler, as off the wire. Geometry packets
+    go to it alone (on the network a camera's broadcast, looped back
+    before the publisher absorbed it, would hand the other camera a
+    geometry without its calibration, and it would calibrate again);
+    detection frames go out as before. It records what each socket sent."""
+
+    def __init__(self, packet: bytes):
+        from vision_processor_tpu_torch.proto import SSL_WrapperPacket
+
+        self.geometry = SSL_WrapperPacket()
+        self.geometry.ParseFromString(packet)
+        self.sockets, self.sent = [], []
+
+    def attach(self, sock) -> None:
+        self.sockets.append(sock)
+        send = sock.send
+
+        def record(msg):
+            self.sent.append((sock.cam_id, time.perf_counter(), msg))
+            if msg.HasField("geometry"):
+                self.absorb(msg.geometry.calib)
+            else:
+                send(msg)
+
+        sock.send = record
+
+    def absorb(self, calibs) -> None:
+        mine = self.geometry.geometry.calib
+        for calib in calibs:
+            old = next((c for c in mine if c.camera_id == calib.camera_id), None)
+            if old is None:
+                mine.append(calib)
+            else:
+                old.CopyFrom(calib)
+        self.publish()
+
+    def publish(self) -> None:
+        data = self.geometry.SerializeToString()
+        for sock in self.sockets:
+            sock._parse(data)
+
+    def calibs(self, cam_id=None) -> list:
+        """The calibrations broadcast (by camera ``cam_id``), in order."""
+        return [c for cid, _, m in self.sent if m.HasField("geometry")
+                for c in m.geometry.calib if cam_id is None or cid == cam_id]
+
+    def detections(self, cam_id: int) -> list:
+        return [m for cid, _, m in self.sent if cid == cam_id and m.HasField("detection")]
+
+
+class BuildLog:
+    """Records every kernel build of the port (ops/cuda.py ``_build``) with
+    where the app was when it ran: ``where`` names the frame, set by the
+    wrapped ``device_step`` / ``dispatch_frames``."""
+
+    def __init__(self, K):
+        self.K, self.inner, self.where, self.builds = K, K._build, "set-up", []
+
+    def __enter__(self):
+        def build(targets):
+            todo = [t[0].name for t in targets if not t[0].exists()]
+            secs = self.inner(targets)
+            if todo:
+                self.builds.append((self.where, todo, secs))
+            return secs
+
+        self.K._build = build
+        return self
+
+    def __exit__(self, *exc):
+        self.K._build = self.inner
+
+    def frame(self, fn, label: str):
+        """``fn`` wrapped to set ``where`` to ``label`` and its call number."""
+        count = [0]
+
+        def wrapped(*args, **kwargs):
+            count[0] += 1
+            self.where = f"{label} {count[0]}"
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.where = f"after {label} {count[0]}"
+
+        return wrapped
+
+    def in_first(self, label: str) -> list:
+        return [b for b in self.builds if b[0] == f"{label} 1"]
+
+
+def pose_errors(fitted, true) -> dict:
+    """The fitted model against the true one: camera position (mm),
+    rotation angle between them (deg), focal length (px), k2, and the
+    largest reprojection difference over the true camera's view (px)."""
+    import numpy as np
+
+    rel = fitted.rotation() @ true.rotation().T
+    angle = float(np.degrees(np.arccos(np.clip((np.trace(rel) - 1.0) / 2.0, -1.0, 1.0))))
+    w, h = (int(v) for v in true.size)
+    px = np.array([[x, y] for x in np.linspace(0.1 * w, 0.9 * w, 5)
+                   for y in np.linspace(0.1 * h, 0.9 * h, 5)])
+    ground = true.image2field(px, 0.0)
+    reproj = float(np.max(np.linalg.norm(fitted.field2image(ground) - px, axis=-1)))
+    return {"position_mm": float(np.linalg.norm(fitted.pos - true.pos)),
+            "angle_deg": angle, "focal_px": float(fitted.focal_length - true.focal_length),
+            "k2": float(fitted.distortion_k2 - true.distortion_k2),
+            "reprojection_px": reproj}
+
+
+def _corner_pixels(model, field, cam_id: int, cam_amount: int) -> list:
+    """A config's line_corners: the camera's visible extent projected by its
+    true model, the min-x/min-y corner first."""
+    import numpy as np
+
+    from vision_processor_tpu_torch.models.camera import visible_field_extent_estimation
+
+    lo, hi = visible_field_extent_estimation(cam_id, cam_amount, field, False)
+    return [[float(v) for v in model.field2image(np.array([x, y, 0.0]))]
+            for x, y in ((lo[0], lo[1]), (lo[0], hi[1]), (hi[0], hi[1]), (hi[0], lo[1]))]
+
+
+def run_calibration(torch, rig) -> dict:
+    """The single-camera ``App`` on the card under the default config with
+    camera 0 of the rig: field geometry without any calibration reaches the
+    App's socket (line corners from the true model and the measured height
+    4.5 m in the config), the first frame takes the calibration path (the
+    demosaic on the card, the fit on the host, the model broadcast), the
+    GeometryBus brings the model back, and CALIB_AFTER frames take slice
+    1's detection path. Fails unless the model is broadcast and adopted,
+    reprojects within 5 px of the true camera, the CALIB_AFTER detection
+    frames after the first find the 4 robot ids within 30 mm and the ball
+    within 40 mm, and B1-B4 launched as on slice 1. Prints the calibration's
+    wall time, the fitted pose against the true one, and whether the first
+    detection frame built a kernel."""
+    phase("calibration path: App calibrates, broadcasts, adopts, detects")
+    import numpy as np
+    import yaml
+
+    from vision_processor_tpu_torch.app.main import App
+    from vision_processor_tpu_torch.io.camera import CameraDriver, RawFrame, register_driver
+    from vision_processor_tpu_torch.models.camera import CameraModel
+    from vision_processor_tpu_torch.ops import cuda as K
+
+    geometry, scenes, raws, (width, height) = rig
+    true = CameraModel.from_proto(next(c for c in geometry.calib if c.camera_id == 0))
+    bus, holder = GeometryBus(geometry_packet(geometry, None)), {}
+
+    class Camera(CameraDriver):
+        def __init__(self):
+            self.i = 0
+
+        @property
+        def fmt(self):
+            return "RGGB"
+
+        def expected_frametime(self):
+            return 0.01
+
+        def get_time(self):
+            return self.i * 0.01
+
+        def read_image(self):
+            if self.i >= 1 + CALIB_AFTER:
+                return None
+            if self.i == 0:
+                bus.publish()
+            self.i += 1
+            return RawFrame(data=raws[0], fmt="RGGB", width=width, height=height)
+
+    register_driver("SMOKE_CALIB", lambda cam_cfg: Camera())
+    workdir = OUT / "calibration"
+    workdir.mkdir(parents=True, exist_ok=True)
+    cfg_path = workdir / "config.yml"
+    cfg_path.write_text(yaml.dump({
+        "cam_id": 0, "bot_heights_file": str(workdir / "no-heights.yml"),
+        "camera": {"driver": "SMOKE_CALIB"},
+        "geometry": {"camera_amount": N_CAMS, "camera_height": float(true.pos[2]),
+                     "line_corners": _corner_pixels(true, geometry.field, 0, N_CAMS)},
+        "network": {"vision_ip": CALIB_GROUP, "vision_port": CALIB_PORT,
+                    "gc_ip": CALIB_GROUP, "gc_port": CALIB_PORT + 1},
+        "stream": {"active": False}, "thresholds": {"resampling_factor": 1.25},
+    }))
+    cwd = os.getcwd()
+    os.chdir(workdir)  # the calibration's diagnostics go to img/
+    try:
+        app = App(str(cfg_path), device=torch.device("cuda", 0))
+        if app.config.wait_for_geometry:
+            fail("calibration path: the default config waits for geometry")
+        bus.attach(app.socket)
+        calibrate = app._calibration_path
+
+        def timed(frame):
+            t0 = time.perf_counter()
+            calibrate(frame)
+            holder.setdefault("calib_s", []).append(time.perf_counter() - t0)
+
+        app._calibration_path = timed
+        with BuildLog(K) as builds:
+            app.processor.device_step = builds.frame(app.processor.device_step,
+                                                     "detection frame")
+            K.reset_launches()
+            t0 = time.perf_counter()
+            app.run()
+            wall = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+    finally:
+        os.chdir(cwd)
+    calibs = bus.calibs(0)
+    if len(holder.get("calib_s", [])) != 1 or len(calibs) != 1:
+        fail(f"calibration path: {len(holder.get('calib_s', []))} calibration frames, "
+             f"{len(calibs)} broadcasts (expected one each)")
+    fitted = CameraModel.from_proto(calibs[0])
+    errs = pose_errors(fitted, true)
+    adopted = app.processor.perspective.model
+    if not np.allclose(adopted.pos, fitted.pos) or not app.processor.perspective.geometry_version:
+        fail("calibration path: the broadcast model was not adopted")
+    if errs["reprojection_px"] > 5.0:
+        fail(f"calibration path: the fitted model reprojects {errs['reprojection_px']:.2f} px "
+             f"from the true camera")
+    dets = bus.detections(0)
+    if len(dets) != CALIB_AFTER:
+        fail(f"calibration path: {len(dets)} detection frames, expected {CALIB_AFTER}")
+    worst = ball_worst = 0.0
+    for f, wrapper in enumerate(dets[1:], start=1):
+        _, err, berr = check_detections(f"calibration path detection frame {f}", scenes[0],
+                                        wrapper)
+        worst, ball_worst = max(worst, err), max(ball_worst, berr)
+    want = {name: 0 for name in launches}
+    want.update(band_pass=2, blob_response_fused=1, row_topk=1, query_select_topk=2)
+    check_launches("calibration path", launches, want, CALIB_AFTER)
+    first = builds.in_first("detection frame")
+    print(f"calibration path: calibration {holder['calib_s'][0]:.3f} s wall (demosaic on the "
+          f"card, fit on the host), model broadcast and adopted; fitted vs true: position "
+          f"{errs['position_mm']:.2f} mm, angle {errs['angle_deg']:.4f} deg, focal "
+          f"{errs['focal_px']:+.3f} px, k2 {errs['k2']:+.5f}, reprojection "
+          f"{errs['reprojection_px']:.3f} px; {len(dets)} detection frames, max bot err "
+          f"{worst:.2f} mm, max ball err {ball_worst:.2f} mm; launches {launches}; "
+          f"kernel builds {builds.builds or 'none'}, in the first detection frame "
+          f"{'none' if not first else first}; run {wall:.3f} s")
+    return {"calibration_s": holder["calib_s"][0], "pose_errors": errs,
+            "launches": launches, "detections": len(dets), "max_bot_err_mm": worst,
+            "max_ball_err_mm": ball_worst, "builds": builds.builds,
+            "first_frame_built": bool(first), "run_s": wall}
+
+
+def run_pair_height(torch) -> dict:
+    """``MultiCamApp`` on the card with two cameras (tests/test_pair_calib.py's
+    pair: 960x720 models over the field halves, 4.5 m high, looking down;
+    one robot in the overlap, one of each camera's own, a ball each) and
+    ``camera_height: 0.0`` in both configs: field geometry without any
+    calibration arrives, the fleet self-calibrates both cameras (their
+    heights land on the focal/height manifold), the GeometryBus brings the
+    models back, the detections feed the pair-height solve until it has
+    its observations, and the solved height is broadcast and adopted;
+    PAIR_AFTER frame-sets run after it. Fails unless both cameras are
+    calibrated, the solved height is within 5 % of the truth, the refined
+    models project the field plane within 2 px of the self-calibrated ones
+    (the solve moves along the manifold), and the last frame-set finds
+    each camera's robots within 30 mm and its ball within 40 mm."""
+    phase("pair-height calibration: MultiCamApp, camera_height 0.0")
+    import numpy as np
+    import yaml
+
+    from vision_processor_tpu_torch.app.multicam_app import MultiCamApp
+    from vision_processor_tpu_torch.io.camera import CameraDriver, RawFrame, register_driver
+    from vision_processor_tpu_torch.io.synthetic import Scene, SceneBall, SceneBot, render_raw
+    from vision_processor_tpu_torch.models.camera import CameraModel
+    from vision_processor_tpu_torch.net.geometry_io import geometry_from_dict
+    from vision_processor_tpu_torch.ops import cuda as K
+
+    n_cams, size = 2, np.array([960, 720])
+    geometry = geometry_from_dict(FIELD)
+    models = [CameraModel.initial_guess(size, c, n_cams, PAIR_H, geometry.field)
+              for c in range(n_cams)]
+    shared = SceneBot(7, "yellow", 0.0, 300.0, 0.5)
+    scenes = [Scene(bots=[shared, SceneBot(3 + 6 * c, "blue", float(m.pos[0]),
+                                           -500.0 + 1100.0 * c, 1.2 - 1.9 * c)],
+                    balls=[SceneBall(float(m.pos[0]) + 600.0, 900.0)], noise_sigma=1.0,
+                    seed=c) for c, m in enumerate(models)]
+    raws = [render_raw(m, geometry.field, s, "RGGB") for m, s in zip(models, scenes)]
+    bus, state = GeometryBus(geometry_packet(geometry, None)), {"sets": 0, "after": 0}
+
+    class Camera(CameraDriver):
+        def __init__(self, c):
+            self.c = c
+
+        @property
+        def fmt(self):
+            return "RGGB"
+
+        def expected_frametime(self):
+            return 0.01
+
+        def get_time(self):
+            return state["sets"] * 0.01
+
+        def read_image(self):
+            if self.c == 0:  # camera 0 counts the frame-sets
+                app = state["app"]
+                if not app._pair_height_active:
+                    state["after"] += 1
+                if state["after"] > PAIR_AFTER or state["sets"] >= PAIR_MAX:
+                    state["eof"] = True
+                state["sets"] += 1
+            if state.get("eof"):
+                return None
+            return RawFrame(data=raws[self.c], fmt="RGGB", width=int(size[0]),
+                            height=int(size[1]))
+
+    register_driver("SMOKE_PAIR", lambda cam_cfg: Camera(int(cam_cfg.path)))
+    workdir = OUT / "pair_height"
+    workdir.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for c in range(n_cams):
+        path = workdir / f"config{c}.yml"
+        path.write_text(yaml.dump({
+            "cam_id": c, "bot_heights_file": str(workdir / "no-heights.yml"),
+            "camera": {"driver": "SMOKE_PAIR", "path": str(c)},
+            "geometry": {"camera_amount": n_cams, "camera_height": 0.0,
+                         "line_corners": _corner_pixels(models[c], geometry.field, c,
+                                                        n_cams)},
+            "network": {"vision_ip": CALIB_GROUP, "vision_port": CALIB_PORT + 2,
+                        "gc_ip": CALIB_GROUP, "gc_port": CALIB_PORT + 3},
+            "stream": {"active": False},
+        }))
+        paths.append(str(path))
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        app = state["app"] = MultiCamApp(paths, device=torch.device("cuda", 0))
+        if not app._pair_height_active:
+            fail("pair height: camera_height 0.0 did not ask for the pair solve")
+        for sock in app.sockets:
+            bus.attach(sock)
+        bus.publish()
+        calibrate, holder = app._calibrate_uncalibrated, {}
+
+        def timed(frames):
+            t0 = time.perf_counter()
+            calibrate(frames)
+            holder.setdefault("calib_s", []).append(time.perf_counter() - t0)
+
+        app._calibrate_uncalibrated = timed
+        refine = app._refine_rig_height
+
+        def timed_refine():
+            t0 = time.perf_counter()
+            refine()
+            holder.setdefault("refine_s", []).append(time.perf_counter() - t0)
+
+        app._refine_rig_height = timed_refine
+        with BuildLog(K) as builds:
+            app.dispatch_frames = builds.frame(app.dispatch_frames, "frame-set")
+            t0 = time.perf_counter()
+            app.run()
+            wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    if app._pair_height_active:
+        fail(f"pair height: not solved in {state['sets']} frame-sets")
+    if [len(bus.calibs(c)) for c in range(n_cams)] != [2] * n_cams:
+        fail(f"pair height: calibrations broadcast by camera "
+             f"{[len(bus.calibs(c)) for c in range(n_cams)]}, expected one self-"
+             f"calibration and one refined height each")
+    self_cal = [CameraModel.from_proto(bus.calibs(c)[0]) for c in range(n_cams)]
+    refined = [CameraModel.from_proto(bus.calibs(c)[-1]) for c in range(n_cams)]
+    heights = [float(m.pos[2]) for m in refined]
+    if any(abs(h - PAIR_H) > 0.05 * PAIR_H for h in heights):
+        fail(f"pair height: solved {heights} mm, true {PAIR_H} mm")
+    drift = max(pose_errors(b, a)["reprojection_px"] for a, b in zip(self_cal, refined))
+    if drift > 2.0:
+        fail(f"pair height: the refined models leave the field-plane manifold "
+             f"({drift:.2f} px)")
+    worst = ball_worst = 0.0
+    for c in range(n_cams):
+        _, err, berr = check_detections(f"pair height camera {c}", scenes[c],
+                                        bus.detections(c)[-1])
+        worst, ball_worst = max(worst, err), max(ball_worst, berr)
+    self_h = [round(float(m.pos[2]), 1) for m in self_cal]
+    print(f"pair height: self-calibration {sum(holder['calib_s']):.3f} s wall "
+          f"({len(holder['calib_s'])} frame-sets), heights {self_h} mm; "
+          f"solve {sum(holder['refine_s']):.3f} s wall after "
+          f"{state['sets'] - state['after']} frame-sets: rig height "
+          f"{[round(h, 1) for h in heights]} mm against the true {PAIR_H} mm; refined "
+          f"models within {drift:.3f} px of the self-calibrated on the field plane; last "
+          f"frame-set max bot err {worst:.2f} mm, max ball err {ball_worst:.2f} mm; "
+          f"kernel builds {builds.builds or 'none'}; run {wall:.3f} s")
+    return {"self_calibration_s": holder["calib_s"], "solve_s": holder["refine_s"],
+            "self_calibrated_heights_mm": [float(m.pos[2]) for m in self_cal],
+            "solved_heights_mm": heights, "true_height_mm": PAIR_H,
+            "frame_sets": state["sets"], "max_bot_err_mm": worst,
+            "max_ball_err_mm": ball_worst, "builds": builds.builds, "run_s": wall}
 
 
 def _e1_inputs(torch):
@@ -1233,19 +1655,21 @@ def load_checkout(root: Path, name: str):
 
 
 def before_kernels(root: Path) -> dict:
-    """B2-B6 and E5 of the checkout at ``root``, through its own wrappers:
-    {"B2": blob_response_fused, "B3": row_topk, "B4": query_select_topk,
-    "B5": circularity_fused, "B6": combo_chain, "E5": row_topk_blk,
+    """B2-B6, E1 and E5 of the checkout at ``root``, through its own
+    wrappers: {"B2": blob_response_fused, "B3": row_topk, "B4":
+    query_select_topk, "B5": circularity_fused, "B6": combo_chain, "E1":
+    band_warp's launch (no window check), "E5": row_topk_blk,
     "cuda": its ops.cuda, "root": ``root`` as given}."""
     import importlib
 
     name = load_checkout(root.resolve(), "vptpu_before").__name__
     bf = importlib.import_module(f"{name}.ops.blob_fused")
+    bw = importlib.import_module(f"{name}.ops.band_warp")
     topk = importlib.import_module(f"{name}.ops.topk")
     combo = importlib.import_module(f"{name}.ops.combo_fused")
     return {"B2": bf.blob_response_fused, "B3": topk.row_topk,
             "B4": topk.query_select_topk, "B5": bf.circularity_fused,
-            "B6": combo.combo_chain, "E5": topk.row_topk_blk,
+            "B6": combo.combo_chain, "E1": bw._launch, "E5": topk.row_topk_blk,
             "cuda": importlib.import_module(f"{name}.ops.cuda"), "root": str(root)}
 
 
@@ -1886,11 +2310,45 @@ def _check_e2e3(torch, calls, calls_f1):
                    bound(raw.numel() + 20 * n, _E2_OPS_PER_PIXEL * n), t_l)
 
 
-def _check_e1(torch, contract):
-    """E1 on its contract run's inputs, bit-equal to its plain version, and
-    B1 (the band pass) at the same shapes."""
+def _e1_edges(torch):
+    """E1 at its edges (tests/test_torch_band_warp.py ``_edge_case``): per-
+    block starts, positions on integers, at 0 and at win - 1 of their
+    window, u8-valued sources with +inf, -inf and NaN in window columns
+    outside the two taps and a NaN at a tap."""
+    import numpy as np
+
+    ch, r, c, n_out, win = 2, 48, 256, 16, 16
+    rng = np.random.default_rng(0)
+    src = rng.integers(0, 256, (ch, r, c)).astype(np.float32)
+    nb, nt = n_out // 8, c // 128
+    r0 = rng.integers(0, r - win + 1, (nb, nt)).astype(np.int32)
+    rel = rng.uniform(2.0, win - 4.0, (ch, n_out, c)).astype(np.float32)
+    rel[:, :, 0::8] = np.floor(rel[:, :, 0::8])
+    rel[:, :, 1::8] = win - 1
+    rel[:, :, 2::8] = 0.0
+    rel[:, :, 3], rel[:, :, 4], rel[:, :, 5] = 5.5, 7.0, 3.25
+    pos = (np.repeat(np.repeat(r0, 8, 0), 128, 1)[None] + rel).astype(np.float32)
+    for b in range(nb):
+        for t in range(nt):
+            src[:, r0[b, t] + 12, t * 128 + 3] = np.inf
+            src[:, r0[b, t], t * 128 + 4] = np.nan
+            src[:, r0[b, t] + win - 1, t * 128 + 5] = -np.inf
+            src[:, r0[b, t] + 6, t * 128 + 6] = np.nan
+    dev = torch.device("cuda", 0)
+    return (torch.from_numpy(src).to(dev), torch.from_numpy(pos).to(dev),
+            torch.from_numpy(r0).to(dev), win)
+
+
+def _check_e1(torch, contract, before):
+    """E1 on its contract run's inputs and at its edges (integer positions,
+    0 and win - 1, non-finite sources), bit-equal to its plain version (NaN
+    for NaN), timed in turns with the other checkout's E1 where ``before``
+    has it, beside B1 (the band pass) at the same shapes; then a split:
+    one block alone, the staging alone (loads and finite flags, no sums),
+    every window column non-finite (the win-tap chain everywhere)."""
     import vision_processor_tpu_torch.ops.band_warp as BW
     import vision_processor_tpu_torch.ops.warp as W
+    from vision_processor_tpu_torch.ops import cuda as K
 
     band_warp = getattr(BW.band_warp, "__wrapped__", BW.band_warp)
     band_pass = W.band_pass.__wrapped__
@@ -1900,31 +2358,74 @@ def _check_e1(torch, contract):
     err = float((got - want).abs().max())
     if not torch.equal(got, want):
         fail(f"band_warp disagrees with its plain version (max abs err {err:.3g})")
+    if before is not None and not torch.equal(got, before["E1"](src, pos, r0, win)):
+        fail(f"band_warp disagrees with {before['root']}'s E1")
+    e_src, e_pos, e_r0, e_win = _e1_edges(torch)
+    e_got = band_warp(e_src, e_pos, e_r0, e_win)
+    e_want = BW._band_warp_plain(e_src, e_pos, e_r0, e_win)
+    if not (torch.equal(e_got.isnan(), e_want.isnan())
+            and torch.equal(e_got.nan_to_num(7.0), e_want.nan_to_num(7.0))):
+        fail("band_warp disagrees with its plain version at the edges (integer "
+             "positions, 0 and win - 1, non-finite sources)")
+    n_bad = int((~torch.isfinite(e_got)).sum())
+    if n_bad == 0:
+        fail("band_warp at the edges: no non-finite source reached an output")
     b1 = band_pass(src, pos)
     b1_err = float((b1 - got).abs().max())
     lib, lib_out = _lerp_yardstick(torch, src, pos)
     lib_err = float((lib_out - got).abs().max())
     # the kernel alone; the wrapper adds its precondition check (device
     # comparisons and one device->host read) to every call
-    t_k = time_fn(torch, lambda: BW._launch(src, pos, r0, win))
+    t_k, t_old = _time_in_turns(torch, lambda: BW._launch(src, pos, r0, win),
+                                lambda: before["E1"](src, pos, r0, win), before)
     t_w = time_fn(torch, lambda: band_warp(src, pos, r0, win))
     t_p = time_fn(torch, lambda: BW._band_warp_plain(src, pos, r0, win))
     t_b1 = time_fn(torch, lambda: band_pass(src, pos))
     t_l = time_fn(torch, lib)
     print(f"E1 band_warp (src {tuple(src.shape)}, pos {tuple(pos.shape)}, r0 "
-          f"{tuple(r0.shape)}, win {win}): bit-equal, max abs err {err:.3g} (tol 0); "
-          f"kernel {_fmt(t_k)} (with the wrapper's window check {_fmt(t_w)}) vs plain "
-          f"{_fmt(t_p)}; B1 band_pass at the same shapes "
+          f"{tuple(r0.shape)}, win {win}): bit-equal, max abs err {err:.3g} (tol 0); at "
+          f"the edges (src {tuple(e_src.shape)}, pos {tuple(e_pos.shape)}) bit-equal, NaN "
+          f"for NaN, {n_bad} non-finite outputs; kernel {_fmt(t_k)}"
+          f"{_before_text(t_old, before)} (with the wrapper's window check {_fmt(t_w)}) vs "
+          f"plain {_fmt(t_p)}; B1 band_pass at the same shapes "
           f"{_fmt(t_b1)}, max abs diff from E1 {b1_err:.3g} (tol 1e-3: hat sum vs 2-tap "
           f"rounding); library grid_sample (f64) {_fmt(t_l)}, max abs diff {lib_err:.3g} "
           f"(tol 1e-3)")
     if not (b1_err <= 1e-3 and lib_err <= 1e-3):
         fail("band_warp disagrees with the band pass or the grid_sample yardstick")
+    # what is left of a call: one (8, 128) block alone, the staging alone,
+    # and the win-tap chain everywhere (a NaN in every window column)
+    one = (src[:1, :, :128].contiguous(), pos[:1, :8, :128].contiguous(),
+           r0[:1, :1].contiguous(), win)
+    stage_out = torch.empty_like(pos)
+
+    def staging():
+        ch, r, c = src.shape
+        K.check(K.lib().vp_band_warp_staging(
+            src.data_ptr(), pos.data_ptr(), r0.data_ptr(), stage_out.data_ptr(), ch, r, c,
+            pos.shape[1], win, K.stream(src)), "band_warp_staging")
+
+    nan_src = src.clone()
+    nan_src[:, ::win] = float("nan")  # every window holds one of these rows
+    # the timed calls find src (10.3 MB) in the 50 MB L2; a 64 MB write
+    # before each call evicts it (the write's own time taken off)
+    flush = torch.empty(16 * 2**20, device=src.device)
+    t_flush = time_fn(torch, flush.zero_)
+    t_cold = time_fn(torch, lambda: (flush.zero_(), BW._launch(src, pos, r0, win)))
+    split = {"one block (8, 128)": time_fn(torch, lambda: BW._launch(*one)),
+             "staging alone": time_fn(torch, staging),
+             "every window non-finite": time_fn(
+                 torch, lambda: BW._launch(nan_src, pos, r0, win)),
+             "cold L2 (64 MB write before each call, its time taken off)":
+                 (t_cold[0] - t_flush[0], t_cold[1] - t_flush[1])}
+    print("E1 split: " + "; ".join(f"{k} {_fmt(t)}" for k, t in split.items()))
+    print(f"E1 ptxas: {_ptxas_entry('band_warp_kernel')}")
     res = _result("band_warp", "vision_processor_tpu_torch/csrc/band_warp.cu",
                   "experiments/pallas_band_warp.py:42", err, t_k, t_p,
                   bound(4 * (src.numel() + 2 * pos.numel() + r0.numel()),
                         5 * win * pos.numel()), t_l)
     res["b1_same_shapes"] = t_b1
+    res["times"] = {"t_k": t_k, "t_before": t_old, "t_wrapper": t_w, "split": split}
     return res
 
 
@@ -2036,7 +2537,7 @@ def check_kernels(torch, s1: dict, s2: dict, s3: dict, s4: dict, s4f1: dict,
         ("B5", _check_b5(torch, c2["circularity_fused"], b2_f1, before)),
         ("B6", _check_b6(torch, c2["combo_chain"], before)),
         ("B7", _check_b7(torch, c2["gather_corners"])),
-        ("E1", _check_e1(torch, contracts)),
+        ("E1", _check_e1(torch, contracts, before)),
         ("E2", _check_e2e3(torch, c4["resample_packed"], s4f1["calls"]["resample_packed"])),
         ("E4", _check_e4(torch, c3["corner_stack"])),
         ("E5", _check_e5(torch, contracts, before)),
@@ -2049,7 +2550,7 @@ def main() -> None:
     parser.add_argument("--profile", action="store_true")
     parser.add_argument("--out", type=Path, default=OUT)
     parser.add_argument("--before", type=Path, default=None,
-                        help="another checkout of the repository whose B2-B6 and E5 "
+                        help="another checkout of the repository whose B2-B6, E1 and E5 "
                              "are timed in turns with this one's (B3, B4, B6 and E5 held "
                              "equal to this one's in every slot)")
     args = parser.parse_args()
@@ -2085,6 +2586,8 @@ def main() -> None:
                       SLICE4_FACTOR1_FRAME_SETS)
     run_one_camera(torch, rig, s4["last_wrappers"])
     idle = run_idle(torch, rig)
+    calib = run_calibration(torch, rig)
+    pair = run_pair_height(torch)
     contracts = run_contracts(torch)
     for label, s, unit in (("slice 1 (warp, score-first)", s1, "frame"),
                            ("slice 2 (gather, circ-first, fused combo)", s2, "frame"),
@@ -2135,6 +2638,7 @@ def main() -> None:
         "card": card, "kernels": record["kernels"],
         "e1_vs_b1": {"b1_busy_ms": dict(results)["E1"]["b1_same_shapes"][0],
                      "b1_ms": dict(results)["E1"]["b1_same_shapes"][1]},
+        "e1_times": dict(results)["E1"]["times"],
         "e5_sweep": dict(results)["E5"]["sweep"],
         "b2_b5_times": {row: dict(results)[row]["times"] for row in ("B2", "B5")},
         "b3_b4_times": {row: dict(results)[row]["times"] for row in ("B3", "B4")},
@@ -2147,6 +2651,8 @@ def main() -> None:
                                     ("slice 4, factor 1.0", s4f1),
                                     ("E1 and E5 contracts", contracts))},
         "idle path": idle,
+        "calibration path": calib,
+        "pair height": pair,
     }, indent=1))
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))

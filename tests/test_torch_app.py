@@ -1,8 +1,9 @@
 """The PyTorch port's App loop end to end: synthetic camera + geometry
 publisher + App + detection recorder over an isolated multicast group (the
 pattern of tests/test_app_integration.py), the idle path before geometry
-under the default config, and the NotImplementedError guards of the paths
-the port does not carry yet.
+under the default config, the calibration path of a camera with geometry
+and no calibration, and the NotImplementedError guards of the paths the
+port does not carry yet.
 """
 import threading
 import time
@@ -266,26 +267,51 @@ def test_app_idle_until_geometry(tmp_path, divb_field, overhead_model, monkeypat
     assert abs(last.balls[0].x - -3200.0) < 40
 
 
-def test_app_refuses_calibration_path(tmp_path, divb_field, overhead_model):
-    """Geometry without this camera's calibration reaches the calibration
-    path, which raises instead of being skipped."""
+def _corner_pixels(model, field, cam_id=0, cam_amount=4):
+    """The config's line_corners: the visible extent's corners projected
+    by the camera's true model, the min-x/min-y corner first."""
+    import numpy as np
+
+    from vision_processor_tpu_torch.models.camera import visible_field_extent_estimation
+
+    lo, hi = visible_field_extent_estimation(cam_id, cam_amount, field, False)
+    corners = [[lo[0], lo[1]], [lo[0], hi[1]], [hi[0], hi[1]], [hi[0], lo[1]]]
+    return [[float(v) for v in model.field2image(np.array([c[0], c[1], 0.0]))]
+            for c in corners]
+
+
+def test_app_refuses_calibration_path(tmp_path, divb_field, overhead_model, monkeypatch):
+    """Named for the guard it replaces: the calibration path is ported. A
+    camera with field geometry and no calibration is calibrated from its
+    frame's field lines (line corners and height in the config) and the
+    model is broadcast on the App's socket, close to the true camera; no
+    NotImplementedError."""
+    import numpy as np
+
     from vision_processor_tpu.net.udp import UDPSocket
+    from vision_processor_tpu.proto import SSL_WrapperPacket
     from vision_processor_tpu_torch.app.main import App
     from vision_processor_tpu_torch.io.camera import SyntheticDriver, register_driver
     from vision_processor_tpu_torch.io.synthetic import Scene
+    from vision_processor_tpu_torch.models.camera import CameraModel
 
+    monkeypatch.chdir(tmp_path)  # the calibration's diagnostics go to img/
     geometry = divb_field
     geometry.geometry.ClearField("calib")
     model = _port_model(overhead_model)
+    field = divb_field.geometry.field
     register_driver(
         "SYNTHETIC",
-        lambda cam_cfg: SyntheticDriver(model, divb_field.geometry.field, Scene(),
-                                        frames=2),
+        lambda cam_cfg: SyntheticDriver(model, field, Scene(noise_sigma=1.0), frames=2),
     )
+    calibs = []
 
     class Sender(UDPSocket):
         def _parse(self, data):
-            pass
+            wrapper = SSL_WrapperPacket()
+            wrapper.ParseFromString(data)
+            if wrapper.HasField("geometry"):
+                calibs.extend(wrapper.geometry.calib)
 
     sender = Sender(GROUP, PORT)
     stop = threading.Event()
@@ -297,15 +323,53 @@ def test_app_refuses_calibration_path(tmp_path, divb_field, overhead_model):
 
     thread = threading.Thread(target=publish, daemon=True)
     thread.start()
+    cfg_path = _write_config(tmp_path, geometry={
+        "camera_amount": 4, "camera_height": float(overhead_model.pos[2]),
+        "line_corners": _corner_pixels(model, field)})
     try:
-        app = App(str(_write_config(tmp_path)), device="cpu")
-        with pytest.raises(NotImplementedError, match="calibration"):
-            app.run()
-        app.close()
+        App(str(cfg_path), device="cpu").run()  # closes the App at its end
+        time.sleep(0.3)
     finally:
         stop.set()
         thread.join()
         sender.close()
+    assert calibs, "no calibration broadcast"
+    assert {c.camera_id for c in calibs} == {0}
+    fitted = CameraModel.from_proto(calibs[0])
+    pts = np.array([[-3000.0, 0.0, 0.0], [-2000.0, 1000.0, 0.0]])
+    err = np.linalg.norm(fitted.field2image(pts) - model.field2image(pts), axis=-1)
+    assert np.max(err) < 5.0, err
+    assert (tmp_path / "img" / "0.calib.json").exists()
+
+
+def test_geometry_builds_the_blob_kernel_ahead(divb_field, overhead_model, monkeypatch):
+    """On the card, adopting a calibration builds the blob kernel at the
+    geometry's radii (B2's (o, r, dr) score-first, B5's (o, r)
+    circularity-first), so that the first detection frame runs no nvcc;
+    on the CPU nothing is built. Shown here with the build recorded, not
+    run."""
+    from vision_processor_tpu_torch.app import processor as P
+    from vision_processor_tpu_torch.ops.pipeline import BlobMachineConfig
+    from vision_processor_tpu_torch.utils.config import VisionConfig
+
+    built = []
+    monkeypatch.setattr(P, "build_kernels", built.extend)
+    geometry = divb_field.geometry
+    geometry.ClearField("calib")
+    geometry.calib.append(overhead_model.to_proto(0))
+    cpu = P.Processor(VisionConfig(), device="cpu")
+    cpu.geometry_check(960, 720, geometry, 1)
+    assert cpu.perspective.geometry_version == 1 and built == []
+    for score_first, version in (("1", 1), ("0", 2)):
+        monkeypatch.setenv("VPTPU_SCOREFIRST", score_first)
+        card = P.Processor(VisionConfig(), device="cuda")
+        card.geometry_check(960, 720, geometry, version)
+        cfg = BlobMachineConfig.from_perspective(card.perspective, "RGGB", (1440, 1920))
+        want = (cfg.grad_offset, cfg.sat_radius,
+                cfg.disc_radius if score_first == "1" else None)
+        assert built[-1] == want
+        card.geometry_check(960, 720, geometry, version)  # unchanged: no build
+    assert len(built) == 2
 
 
 def test_open_camera_refuses_unported_drivers():

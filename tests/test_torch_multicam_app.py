@@ -6,6 +6,7 @@ rule that a kernel failure leaves both apps' run().
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 from types import SimpleNamespace
@@ -92,16 +93,17 @@ def _register(name, fleet, frames, outage=()):
     register_driver(name, lambda cam_cfg: Cached(int(cam_cfg.path)))
 
 
-def _configs(tmp_path, driver, port, ports=None, wait=True):
+def _configs(tmp_path, driver, port, ports=None, wait=True, geometry=None):
     """One config per camera; ``ports``: each camera's vision port (default
-    all ``port``)."""
+    all ``port``); ``geometry``: camera -> more keys of its geometry
+    section."""
     paths = []
     for c in range(N_CAMS):
         config = {
             "cam_id": c,
             "bot_heights_file": str(tmp_path / "none.yml"),
             "camera": {"driver": driver, "path": str(c)},
-            "geometry": {"camera_amount": N_CAMS},
+            "geometry": {"camera_amount": N_CAMS} | (geometry or {}).get(c, {}),
             "network": {"vision_ip": GROUP, "vision_port": ports[c] if ports else port,
                         "gc_ip": "224.99.99.102", "gc_port": port + 1},
             "stream": {"active": False},
@@ -115,19 +117,21 @@ def _configs(tmp_path, driver, port, ports=None, wait=True):
 
 
 class _Bus:
-    """Publishes the geometry (field + both calibrations) on the group and
-    records the detection frames sent there."""
+    """Publishes the geometry (field + both calibrations) on the group,
+    absorbs the calibrations the fleet broadcasts (like geom_publisher.py)
+    and records the detection frames and calibrations sent there."""
 
     def __init__(self, fleet, port, calibrated=range(N_CAMS)):
         from vision_processor_tpu.net.udp import UDPSocket
         from vision_processor_tpu.proto import SSL_WrapperPacket
 
         self.by_cam = {c: [] for c in range(N_CAMS)}
+        self.calibs = []
         geometry = SSL_WrapperPacket()
         geometry.geometry.field.CopyFrom(fleet.field)
         for c in calibrated:
             geometry.geometry.calib.append(fleet.jmodels[c].to_proto(c))
-        by_cam = self.by_cam
+        by_cam, calibs = self.by_cam, self.calibs
 
         class Socket(UDPSocket):
             def _parse(self, data):
@@ -135,6 +139,12 @@ class _Bus:
                 got.ParseFromString(data)
                 if got.HasField("detection"):
                     by_cam[got.detection.camera_id].append(got.detection)
+                if got.HasField("geometry"):
+                    for calib in got.geometry.calib:
+                        if calib.camera_id in {c.camera_id for c in geometry.geometry.calib}:
+                            continue
+                        calibs.append(calib)
+                        geometry.geometry.calib.append(calib)
 
         self.socket = Socket(GROUP, port)
         self.stop = threading.Event()
@@ -242,22 +252,43 @@ def test_fleet_waits_for_a_camera_without_geometry(tmp_path, fleet):
 
 
 def test_fleet_refuses_only_a_camera_to_calibrate(tmp_path, fleet):
-    """Field geometry with camera 0's calibration only: camera 1 has
-    geometry and no calibration, which needs the calibration path."""
+    """Named for the guard it replaces: the fleet calibrates. Field geometry
+    with camera 0's calibration only: camera 1 has geometry and no
+    calibration, so the fleet calibrates camera 1 alone from its frame
+    (line corners and height in its config), broadcasts it, adopts it when
+    the bus brings it back, and then runs both cameras."""
     from vision_processor_tpu_torch.app.multicam_app import MultiCamApp
+    from vision_processor_tpu_torch.models.camera import visible_field_extent_estimation
 
     port = PORT + 24
-    _register("SYNTH_MC_CAL", fleet, frames=3)
+    model = fleet.models[1]
+    lo, hi = visible_field_extent_estimation(1, N_CAMS, fleet.field, False)
+    corners = [[float(v) for v in model.field2image(np.array([x, y, 0.0]))]
+               for x, y in ((lo[0], lo[1]), (lo[0], hi[1]), (hi[0], hi[1]), (hi[0], lo[1]))]
+    _register("SYNTH_MC_CAL", fleet, frames=6)
     bus = _Bus(fleet, port, calibrated=[0])
     try:
-        app = MultiCamApp(_configs(tmp_path, "SYNTH_MC_CAL", port), device="cpu")
-        with pytest.raises(NotImplementedError, match="calibration"):
-            app.run()
-        app.close()
+        app = MultiCamApp(_configs(tmp_path, "SYNTH_MC_CAL", port, geometry={
+            1: {"camera_height": 4500.0, "line_corners": corners}}), device="cpu")
+        cwd = os.getcwd()
+        os.chdir(tmp_path)  # the calibration's diagnostics go to img/
+        try:
+            app.run()  # closes the app at its end
+        finally:
+            os.chdir(cwd)
+        time.sleep(0.3)
     finally:
         bus.close()
-    assert app.processors[0].perspective.geometry_version
-    assert not app.processors[1].perspective.geometry_version
+    assert [c.camera_id for c in bus.calibs] == [1]  # camera 0 kept its own
+    fitted = app.processors[1].perspective.model
+    pts = np.array([[model.pos[0], model.pos[1], 0.0],
+                    [model.pos[0] - 800.0, model.pos[1] + 500.0, 0.0]])
+    assert np.max(np.linalg.norm(fitted.field2image(pts) - model.field2image(pts),
+                                 axis=-1)) < 5.0
+    assert all(p.perspective.geometry_version for p in app.processors)
+    for cam in range(N_CAMS):
+        assert bus.by_cam[cam], f"camera {cam} sent no detections"
+        _check_detections(fleet, bus.by_cam[cam][-1], cam)
 
 
 def test_kernel_failure_leaves_multicam_run(tmp_path, fleet):
@@ -401,7 +432,7 @@ def test_main_dispatches_on_the_config_count(monkeypatch):
 @pytest.mark.parametrize("overrides", [
     {"stream": {"active": True}},
     {"debug": {"debug_images": True}},
-    {"geometry": {"camera_amount": 2, "camera_height": 0.0}},
+    {"debug": {"debug_stream_interval_ms": 100}},
 ])
 def test_multicam_refuses_unported_paths(tmp_path, overrides):
     from vision_processor_tpu_torch.app.multicam_app import MultiCamApp

@@ -89,3 +89,17 @@ def test_before_b6_e5_are_a_second_copy(smoke):
     x = torch.from_numpy(x)
     for a, b in zip(before["E5"](x, 6, 8), T.row_topk_blk(x, 6, 8)):
         assert torch.equal(a, b)
+
+
+def test_before_e1_is_a_second_copy(smoke):
+    """E1 comes as the other checkout's bare launch (no window check), which
+    takes CUDA tensors only."""
+    from vision_processor_tpu_torch.ops import band_warp as BW
+
+    before = smoke.before_kernels(ROOT)
+    assert before["E1"] is not BW._launch
+    assert before["E1"].__module__ == "vptpu_before.ops.band_warp"
+    assert before["E1"].__name__ == "_launch"
+    with pytest.raises(ValueError, match="CUDA"):
+        before["E1"](torch.zeros(1, 8, 128), torch.zeros(1, 8, 128),
+                     torch.zeros(1, 1, dtype=torch.int32), 2)

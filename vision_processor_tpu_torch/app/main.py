@@ -9,7 +9,11 @@ Counterpart of vision_processor_tpu/app/main.py (reference
 src/main.cpp:251-427): read frame -> adopt geometry -> detection path ->
 multicast the detection frame, with the one-frame device/host overlap.
 Before any geometry arrives the idle path runs: it saves the demosaiced
-frame 100 as ``img/<cam_id>.raw.jpg``. The calibration path and the debug
+frame 100 as ``img/<cam_id>.raw.jpg``. With field geometry but no
+calibration for this camera the calibration path runs: the frame is
+demosaiced on the App's device, calibrated from its field lines on the host
+(``calib/``, which imports scipy and cv2 when first used) and the model
+broadcast; it is adopted when it comes back over the bus. The debug
 outputs (H.264/JPEG stream, debug images, interval snapshots) are not
 ported yet; reaching one raises NotImplementedError naming the ROADMAP.md
 item that ports it.
@@ -22,6 +26,7 @@ import signal
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import yaml
 
@@ -38,11 +43,30 @@ from .processor import Processor, TrackedArrays
 log = get_logger(__name__)
 
 _ROADMAP_DEBUG = "ROADMAP.md, 'Port: debug views, quad2rgba/nv12 and the debug stream (A8)'"
-_ROADMAP_CALIB = "ROADMAP.md, 'Port: calibration paths'"
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+def demosaic(frame, device) -> np.ndarray:
+    """The raw frame demosaiced on ``device`` (``raw2quad`` then
+    ``quad2rgba``), brought to the host: (H, W, 3) float32 RGB."""
+    raw = torch.from_numpy(frame.data).to(device)
+    return quad2rgba(raw2quad(raw, frame.fmt), frame.fmt).cpu().numpy()
+
+
+def calibration_packet(geometry, model, cam_id: int):
+    """The SSL_WrapperPacket that broadcasts ``model`` as camera ``cam_id``'s
+    calibration: the received geometry with that calibration alone."""
+    from ..proto import SSL_SOURCE_VISION_PROCESSOR, SSL_WrapperPacket
+
+    wrapper = SSL_WrapperPacket()
+    wrapper.source = SSL_SOURCE_VISION_PROCESSOR
+    wrapper.geometry.CopyFrom(geometry)
+    wrapper.geometry.ClearField("calib")
+    wrapper.geometry.calib.append(model.to_proto(cam_id))
+    return wrapper
 
 
 class App:
@@ -101,11 +125,14 @@ class App:
 
             self.processor.geometry_check(frame.width, frame.height)
 
+            if not self.processor.perspective.geometry_version and self.socket.geometry_version:
+                # outside the per-frame guard: a failure of the demosaic on
+                # the card or of the calibration code ends run()
+                self._calibration_path(frame)
+                continue
             try:
                 if self.processor.perspective.geometry_version:
                     self._detection_path(frame, start, real_start)
-                elif self.socket.geometry_version:
-                    raise _unported("the calibration path", _ROADMAP_CALIB)
                 else:
                     self._idle_path(frame, frame_id)
             except (NotImplementedError, KernelError):
@@ -160,6 +187,23 @@ class App:
             self.frame_stats_timer.print_runtimes()
             self.frame_stats_timer.clear()
 
+    def _calibration_path(self, frame):
+        """Field geometry without this camera's calibration: calibrate from
+        the frame's field lines and broadcast the model on the App's socket
+        (JAX app/main.py _calibration_path); the next ``geometry_check``
+        adopts it once it comes back over the bus. A calibration that
+        finds no model is logged and tried again on the next frame."""
+        from ..calib.geometry import geometry_calibration
+
+        rgb = demosaic(frame, self.device)
+        model = geometry_calibration(self.config, self.socket.geometry.field, rgb)
+        if model is None:
+            log.warning("camera %d: no calibration found, trying the next frame",
+                        self.config.cam_id)
+            return
+        self.socket.send(calibration_packet(self.socket.geometry, model,
+                                            self.config.cam_id))
+
     def _idle_path(self, frame, frame_id):
         """No geometry yet: save the demosaiced frame 100 as the sample
         image (JAX app/main.py _idle_path). The stream and the interval
@@ -167,9 +211,8 @@ class App:
         construction."""
         if frame_id != 100:
             return
-        raw = torch.from_numpy(frame.data).to(self.device)
-        rgb = quad2rgba(raw2quad(raw, frame.fmt), frame.fmt).cpu().numpy()
-        self.snapshots.offer(rgb, f"img/{self.config.cam_id}.raw.jpg")
+        self.snapshots.offer(demosaic(frame, self.device),
+                             f"img/{self.config.cam_id}.raw.jpg")
         log.info("Saved sample image")
 
     def close(self):

@@ -13,11 +13,15 @@ difference velocities), not from the device summary loop: host-side id
 assignment stays authoritative (reference src/udpsocket.cpp:204-256).
 
 Until every camera is calibrated the fleet waits: a camera without
-geometry idles. Not ported yet, and refused where they would run:
-self-calibration of a camera that has field geometry but no calibration
-(ROADMAP A3), the debug stream, debug images and snapshots, and with them
-the idle views (ROADMAP A2), and the rig-height calibration from camera
-pairs (``calib/pair.py``, ROADMAP A3).
+geometry idles, and a camera with field geometry and no calibration is
+calibrated from its frame (``App``'s calibration path, camera by camera)
+and its model broadcast. An explicit ``camera_height: 0.0`` in some config
+of a fleet of two or more asks for the rig-height solve from camera pairs
+(``calib/pair.py``): robot detections seen by two cameras are gathered
+until there are ``_height_obs_target`` of them, and the solved height is
+broadcast once. Both import scipy (``calib/``) only when they run. Not
+ported yet, and refused where they would run: the debug stream, debug
+images and snapshots, and with them the idle views (ROADMAP A2).
 The staggered plan enqueues every camera's core on the current stream; one
 stream per camera is ROADMAP D1.
 """
@@ -49,10 +53,20 @@ from ..parallel.multicam import (
 from ..utils.config import VisionConfig
 from ..utils.log import get_logger
 from ..utils.state import to_numpy, to_torch
-from .main import _ROADMAP_CALIB, _ROADMAP_DEBUG, _unported
+from .main import _ROADMAP_DEBUG, _unported, calibration_packet, demosaic
 from .processor import Processor, TrackedArrays
 
 log = get_logger(__name__)
+
+
+def free_height_cameras(configs) -> set:
+    """Camera indices whose height the pair solver may move: every camera
+    but those with an operator-measured nonzero camera_height. A camera
+    whose geometry section omits camera_height carries an arbitrary height
+    from the ill-conditioned single-camera fit; anchoring on it would pin
+    the rig solve to a wrong value, so it is free too."""
+    return {i for i, c in enumerate(configs)
+            if not (c.camera_height_set and c.camera_height != 0.0)}
 
 
 class MultiCamApp:
@@ -104,12 +118,19 @@ class MultiCamApp:
                 raise _unported("the debug stream (stream.active)", _ROADMAP_DEBUG)
             if c.debug_images or c.debug_stream_interval_ms > 0:
                 raise _unported("debug images and snapshots", _ROADMAP_DEBUG)
-        # an explicit `camera_height: 0.0` asks for the rig-height solve
-        # from camera pairs (calib/pair.py)
-        if len(configs) >= 2 and any(c.camera_height == 0.0 and c.camera_height_set
-                                     for c in configs):
-            raise _unported("pair-height calibration (camera_height: 0.0)",
-                            _ROADMAP_CALIB)
+        # rig-height calibration (reference config.yml: `camera_height: 0.0`
+        # calibrates the height; one camera's fit cannot separate height
+        # from focal length for a near-nadir view): from two or more
+        # cameras, the pair solver of calib/pair.py fits it to robots seen
+        # in the overlaps, once, and the refined calibrations are broadcast
+        # like any other. Only an explicit `camera_height: 0.0` asks for it:
+        # a missing geometry section also reads 0.0, and forcing one height
+        # on a rig whose cameras hang at different heights would spoil good
+        # calibrations.
+        self._pair_height_active = len(configs) >= 2 and any(
+            c.camera_height == 0.0 and c.camera_height_set for c in configs)
+        self._height_obs: list = []
+        self._height_obs_target = 32
         self.configs = configs
         self.n_cams = len(configs)
         self.device = torch.device(device)
@@ -372,15 +393,83 @@ class MultiCamApp:
         return self.finish_frames(out, now, frames)
 
     def _calibrate_uncalibrated(self, frames) -> None:
-        """Some camera is uncalibrated (JAX multicam_app.py
-        _calibrate_uncalibrated): one with field geometry on its socket and
-        no calibration would be calibrated from its frame, which is not
-        ported; a camera already calibrated, or without geometry, is
-        skipped."""
-        for proc, sock in zip(self.processors, self.sockets):
+        """Calibrate every camera that has field geometry on its socket and
+        no calibration yet from its frame (JAX multicam_app.py
+        _calibrate_uncalibrated, ``App._calibration_path`` camera by
+        camera): demosaiced on the card, fitted on the host, the model
+        broadcast on the camera's own socket and adopted by its next
+        geometry_check. A camera already calibrated, or without geometry,
+        is skipped; one whose calibration finds no model is tried again on
+        the next frame-set."""
+        from ..calib.geometry import geometry_calibration
+
+        for cfg, proc, sock, frame in zip(self.configs, self.processors, self.sockets,
+                                          frames):
             if proc.perspective.geometry_version or not sock.geometry_version:
                 continue
-            raise _unported("the calibration path", _ROADMAP_CALIB)
+            log.info("Calibrating camera %d ...", cfg.cam_id)
+            model = geometry_calibration(cfg, sock.geometry.field,
+                                         demosaic(frame, self.device))
+            if model is None:
+                log.warning("camera %d: no calibration found, trying the next "
+                            "frame-set", cfg.cam_id)
+                continue
+            sock.send(calibration_packet(sock.geometry, model, cfg.cam_id))
+
+    def _accumulate_height_obs(self, wrappers) -> None:
+        """Dual-view robot observations for the pair height solver. The
+        emitted field positions were unprojected at the robot height, so
+        field2image at that height gives back the centre pixels."""
+        from ..calib.pair import observations_from_detections
+
+        dets = {}
+        for c, wrapper in enumerate(wrappers):
+            if wrapper is None:  # camera outage: nothing was emitted
+                continue
+            det = wrapper.detection
+            model = self.processors[c].perspective.model
+            entries = []
+            for team_off, robots in ((0, det.robots_yellow), (16, det.robots_blue)):
+                for r in robots:
+                    # a vetoed robot is emitted with confidence 0; sharing an
+                    # id with a real robot of the paired camera it would spoil
+                    # the observation, so only trusted detections feed the fit
+                    if r.confidence <= 0.0:
+                        continue
+                    px = model.field2image(np.array([r.x, r.y, r.height], dtype=float))
+                    entries.append((int(r.robot_id) + team_off, px, float(r.height)))
+            dets[c] = entries
+        models = [p.perspective.model for p in self.processors]
+        self._height_obs += observations_from_detections(dets, models)
+
+    def _refine_rig_height(self) -> None:
+        """Once: solve the rig height, move every free camera along its
+        plane-consistent manifold and broadcast the refined calibrations
+        (the geometry publisher absorbs them, as after self-calibration).
+        Without a solution the observations are dropped and gathered
+        afresh."""
+        from copy import deepcopy
+
+        from ..calib.pair import apply_height, height_from_shared_objects
+
+        models = [p.perspective.model for p in self.processors]
+        # a camera with an operator-measured nonzero height stays fixed in
+        # the cost and is never rewritten
+        free = free_height_cameras(self.configs)
+        h = height_from_shared_objects(models, self._height_obs, free=free)
+        self._height_obs.clear()
+        if h is None:
+            log.warning("pair height calibration found no solution; keeping the "
+                        "calibrations and gathering fresh observations")
+            return
+        self._pair_height_active = False
+        refined = [deepcopy(models[i]) for i in sorted(free)]
+        apply_height(refined, h)
+        for i, model in zip(sorted(free), refined):
+            sock = self.sockets[i]
+            sock.send(calibration_packet(sock.geometry, model, self.configs[i].cam_id))
+        log.info("pair height calibration applied: rig height %.0f mm broadcast for "
+                 "%d of %d cameras", h, len(free), self.n_cams)
 
     def _idle_views(self, frame_id: int) -> None:
         """Before its geometry arrives, a camera would stream its raw
@@ -446,23 +535,31 @@ class MultiCamApp:
             try:
                 out = self.dispatch_frames(frames, now)
                 if out is None:
-                    # some camera is uncalibrated: finish any in-flight set,
-                    # calibrate what can be, and wait for the rest
-                    self._finish_pending()
-                    self._calibrate_uncalibrated(frames)
-                    self._idle_views(frame_id)
-                    continue
-                if self.pipeline:
-                    self._finish_pending()
+                    # some camera is uncalibrated: finish any in-flight set
+                    wrappers = self._finish_pending()
+                elif self.pipeline:
+                    wrappers = self._finish_pending()
                     self._pending = (out, now, frames, stale)
                 else:
-                    self.finish_frames(out, now, frames, stale)
+                    wrappers = self.finish_frames(out, now, frames, stale)
             except (NotImplementedError, KernelError):
                 raise
             except Exception:  # keep the fleet alive on a transient failure
                 log.exception("frame set %d failed, continuing", frame_id)
                 self._pending = None
                 continue
+            if out is None:
+                # outside the per-frame guard, as below: a failure of the
+                # demosaic on the card or of the calibration code ends run().
+                # Calibrate what can be, and wait for the rest
+                self._calibrate_uncalibrated(frames)
+                self._idle_views(frame_id)
+                continue
+            # a failure of the pair solve ends run() too
+            if wrappers is not None and self._pair_height_active:
+                self._accumulate_height_obs(wrappers)
+                if len(self._height_obs) >= self._height_obs_target:
+                    self._refine_rig_height()
             processing = get_real_time() - real_start
             budget = self.cameras[0].expected_frametime()
             if budget and processing > budget:

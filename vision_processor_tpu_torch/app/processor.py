@@ -27,7 +27,9 @@ from ..models.colors import ColorState
 from ..models.detector import DetectorConfig, detect, estimate_bot_ids
 from ..models.device_finish import finish_on_device, pack_field_marks
 from ..models.perspective import Perspective
-from ..ops.pipeline import BlobMachineConfig, blob_machine
+from ..ops import blob as B
+from ..ops.blob_fused import build_kernels
+from ..ops.pipeline import BlobMachineConfig, blob_machine, extraction_kernel_shape
 from ..utils.config import VisionConfig
 from ..utils.log import get_logger
 from ..utils.state import to_numpy, to_torch
@@ -196,6 +198,8 @@ class Processor:
         )
         if changed:
             self._geom_key = None
+            if self.device.type == "cuda":
+                self._build_extraction_kernel()
             # re-broadcast calib with derived world position when missing
             if self.socket is not None and not had_calib:
                 from ..proto import (
@@ -215,6 +219,17 @@ class Processor:
                             self.perspective.model.to_proto(self.config.cam_id)
                         )
                         self.socket.send(wrapper)
+
+    def _build_extraction_kernel(self) -> None:
+        """Build the blob kernel (B2 or B5) at this geometry's radii now, as
+        the geometry is adopted: the radii follow ``field_scale``, and a new
+        shape would otherwise run nvcc inside the first detection frame."""
+        p = self.perspective
+        shape = extraction_kernel_shape(B.gradient_offset(p.max_blob_radius, p.field_scale),
+                                        B.sat_radius(p.min_blob_radius, p.field_scale),
+                                        B.disc_radius(p.min_blob_radius, p.field_scale))
+        if shape is not None:
+            build_kernels([shape])
 
     @property
     def resample_mode(self) -> str | None:

@@ -104,6 +104,64 @@ def quat_to_matrix(q: np.ndarray) -> np.ndarray:
     )
 
 
+def matrix_to_quat(m: np.ndarray) -> np.ndarray:
+    """3x3 rotation matrix -> quaternion (x, y, z, w)."""
+    t = np.trace(m)
+    if t > 0:
+        s = np.sqrt(t + 1.0) * 2
+        w = 0.25 * s
+        x = (m[2, 1] - m[1, 2]) / s
+        y = (m[0, 2] - m[2, 0]) / s
+        z = (m[1, 0] - m[0, 1]) / s
+    elif m[0, 0] > m[1, 1] and m[0, 0] > m[2, 2]:
+        s = np.sqrt(1.0 + m[0, 0] - m[1, 1] - m[2, 2]) * 2
+        w = (m[2, 1] - m[1, 2]) / s
+        x = 0.25 * s
+        y = (m[0, 1] + m[1, 0]) / s
+        z = (m[0, 2] + m[2, 0]) / s
+    elif m[1, 1] > m[2, 2]:
+        s = np.sqrt(1.0 + m[1, 1] - m[0, 0] - m[2, 2]) * 2
+        w = (m[0, 2] - m[2, 0]) / s
+        x = (m[0, 1] + m[1, 0]) / s
+        y = 0.25 * s
+        z = (m[1, 2] + m[2, 1]) / s
+    else:
+        s = np.sqrt(1.0 + m[2, 2] - m[0, 0] - m[1, 1]) * 2
+        w = (m[1, 0] - m[0, 1]) / s
+        x = (m[0, 2] + m[2, 0]) / s
+        y = (m[1, 2] + m[2, 1]) / s
+        z = 0.25 * s
+    return _quat_normalize(np.array([x, y, z, w], dtype=np.float64))
+
+
+def euler_to_matrix(euler: np.ndarray) -> np.ndarray:
+    """Intrinsic XYZ euler angles -> rotation matrix (Rx @ Ry @ Rz)."""
+    cx, cy, cz = np.cos(euler)
+    sx, sy, sz = np.sin(euler)
+    rx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]], dtype=np.float64)
+    ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]], dtype=np.float64)
+    rz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]], dtype=np.float64)
+    return rx @ ry @ rz
+
+
+def matrix_to_euler(m: np.ndarray) -> np.ndarray:
+    """Rotation matrix -> intrinsic XYZ euler angles.
+
+    Matches Eigen's eulerAngles(0, 1, 2) range conventions closely enough
+    for round-tripping through euler_to_matrix.
+    """
+    sy = m[0, 2]
+    sy = np.clip(sy, -1.0, 1.0)
+    y = np.arcsin(sy)
+    if abs(sy) < 0.9999999:
+        x = np.arctan2(-m[1, 2], m[2, 2])
+        z = np.arctan2(-m[0, 1], m[0, 0])
+    else:
+        x = np.arctan2(m[1, 0], m[1, 1])
+        z = 0.0
+    return np.array([x, y, z], dtype=np.float64)
+
+
 @dataclass
 class CameraModel:
     """Host-side camera model (numpy, float64 for calibration stability)."""
@@ -124,6 +182,37 @@ class CameraModel:
         self.pos = np.asarray(self.pos, dtype=np.float64)
         self.quat = _quat_normalize(np.asarray(self.quat, dtype=np.float64))
         self.size = np.asarray(self.size, dtype=np.int64)
+
+    @classmethod
+    def initial_guess(
+        cls,
+        size: np.ndarray,
+        cam_id: int,
+        cam_amount: int,
+        camera_height: float,
+        fieldsz,
+    ) -> "CameraModel":
+        """Initial model above the center of this camera's grid cell with the
+        whole cell visible (reference src/CameraModel.cpp:67-83)."""
+        size = np.asarray(size, dtype=np.int64)
+        lo, hi = visible_field_extent_estimation(cam_id, cam_amount, fieldsz, True)
+        pos = np.array([0.0, 0.0, 5000.0])
+        pos[:2] = (lo + hi) / 2
+        if camera_height != 0.0:
+            pos[2] = camera_height
+
+        principal = size.astype(np.float64) / 2
+        ordered_size = np.array([size.max(), size.min()], dtype=np.float64)
+        extent = hi - lo
+        ordered_extent = np.array([extent.max(), extent.min()])
+        focal = ((ordered_size - principal) * pos[2] / ordered_extent).min() * 2
+
+        return cls(
+            focal_length=float(focal),
+            principal_point=principal,
+            pos=pos,
+            size=size,
+        )
 
     @classmethod
     def from_proto(cls, calib) -> "CameraModel":
@@ -171,6 +260,12 @@ class CameraModel:
         """Field->image rotation matrix."""
         return quat_to_matrix(self.quat)
 
+    def get_euler(self) -> np.ndarray:
+        return matrix_to_euler(self.rotation())
+
+    def update_euler(self, euler: np.ndarray) -> None:
+        self.quat = matrix_to_quat(euler_to_matrix(np.asarray(euler)))
+
     def ensure_size(self, new_size: np.ndarray) -> None:
         """Rescale intrinsics when the image resolution changes
         (reference src/CameraModel.cpp:124-135)."""
@@ -188,6 +283,9 @@ class CameraModel:
         n = (p - self.principal_point) / self.focal_length
         r2 = np.sum(n * n, axis=-1, keepdims=True)
         return n * (1.0 + self.distortion_k2 * r2)
+
+    def undistort(self, p: np.ndarray) -> np.ndarray:
+        return self.normalize_undistort(p) * self.focal_length + self.principal_point
 
     def field2image(self, p: np.ndarray, iterations: int = 10) -> np.ndarray:
         """Field mm (..., 3) -> image px (..., 2).

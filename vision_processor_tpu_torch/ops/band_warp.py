@@ -14,9 +14,11 @@ raises ``ValueError`` if not. ``block_starts`` builds such starts, as the
 experiment's ``block_starts_2d`` does.
 
 On the card ``band_warp`` launches the CUDA kernel of ``csrc/band_warp.cu``
-(the window staged in shared memory); ``_band_warp_plain`` is the plain
-PyTorch version, used for CPU tensors and held against the kernel on the
-card, which is bit-equal to it. No production path calls it: B1 is the
+(a thread per output column of a block: its window column staged, then the
+two taps at floor(pos - r0), or all ``win`` where the column holds a
+non-finite source); ``_band_warp_plain`` is the plain PyTorch version, used
+for CPU tensors and held against the kernel on the card, which is
+bit-equal to it (the kernel's header comment proves it). No production path calls it: B1 is the
 band pass of the warp; E1 runs at its own contract, measured beside B1 by
 ``chip_smoke.py``.
 """

@@ -83,6 +83,8 @@ _SIGNATURES = {
     "vp_resample_packed": [_P, _I, _I, _I, _I, _P, _P, _I, _L, _P, _P],
     # src, pos, r0, out, ch, R, C, n_out, win, stream
     "vp_band_warp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # the same arguments: E1's loads and finite flags alone, for timing
+    "vp_band_warp_staging": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, R, L, m, blk, warps, vals, idx, stream
     "vp_row_topk_blk": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
     # out: registers a thread, most threads a block

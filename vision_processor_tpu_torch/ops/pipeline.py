@@ -123,6 +123,19 @@ def score_first() -> bool:
     return os.environ.get("VPTPU_SCOREFIRST", "1") != "0"
 
 
+def extraction_kernel_shape(grad_offset: int, sat_radius: int, disc_radius: int):
+    """The radii the blob machine's extraction launches its kernel at on the
+    card, in the current extraction order: B2's (o, r, dr) score-first, B5's
+    (o, r, None) circularity-first; None where it runs the eager chain."""
+    from .blob_fused import response_kernel_fits
+
+    if score_first():
+        if response_kernel_fits(grad_offset, sat_radius, disc_radius):
+            return (grad_offset, sat_radius, disc_radius)
+        return None
+    return (grad_offset, sat_radius, None) if sat_radius >= 2 else None
+
+
 def circularity_map(cfg: BlobMachineConfig, flat: torch.Tensor) -> torch.Tensor:
     """The circularity alone: the fused kernel on a CUDA tensor when
     ``sat_radius >= 2``, else the eager chain (SAT + quadrant reads)."""
