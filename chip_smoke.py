@@ -71,6 +71,24 @@ Phases (any failure exits non-zero and prints no result line):
    0.0`` self-calibrates both, solves the rig height from the robot both
    see (within 5 % of the truth, the models kept on their field-plane
    manifold) and detects within the same bounds after it;
+   then the debug stream and the file replay (``run_replay``): rig camera
+   0's frame as 14 BGR frames of an MJPG AVI that cv2 writes and reads back,
+   with its gt.yml and geometry.yml, under build/smoke/replay/; the ``App``
+   under the repository's config.yml as shipped (the stream on by default,
+   the OPENCV driver), only the camera path, the addresses, a 200 ms
+   snapshot interval and the debug images changed, geometry from the
+   GeometryBus. The codec must be h264-native (the native host library,
+   built with g++ from native/ beside the kernels' build), RTP packets must
+   arrive on the stream group and depacketize into access units behind
+   an SPS and a PPS, the detections on the wire must meet the same bounds,
+   the snapshots and debug images must decode, each frame must launch B2,
+   B3 once and B4 twice with B1 twice (warp) or E4 and B7 once (gather),
+   and no tensor may leave the card inside ``device_step``; the device
+   span of ``debug_views`` and the frame wall with the stream on and off
+   are printed. Then ``app/blob_benchmark.py`` (the ``[BlobMachine]``
+   line: 5 blobs a robot and 1 a ball each frame, finite) and
+   ``app/geometry_benchmark.py`` (a finite ``[Model score]``) with
+   ``--device cuda`` on the same dataset;
 7. E1 and E5 at their own contracts (no production path runs them): the
    banded warp pass with window starts at its experiment's shapes, and the
    row top-k at rows-per-block 8, 32 and 64 on its experiment's shapes;
@@ -113,6 +131,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -204,6 +223,25 @@ def build():
     for line in ptxas.splitlines():
         if "registers" in line or "spill" in line.lower() or line.startswith("=="):
             print("ptxas:", line.strip())
+
+
+def start_native_build():
+    """Builds the native host library (io/native.py, the debug stream's
+    H.264 encoder, g++ from native/) in a thread, beside the kernels'
+    nvcc builds; ``.info`` gets the library and the seconds it took."""
+    import threading
+
+    from vision_processor_tpu_torch.io import native as N
+
+    def run():
+        t0 = time.perf_counter()
+        thread.info["lib"] = N.load_native()
+        thread.info["s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run)
+    thread.info = {}
+    thread.start()
+    return thread
 
 
 def _blob_lib(o, r, dr=None) -> Path:
@@ -1121,9 +1159,9 @@ def run_calibration(torch, rig) -> dict:
         bus.attach(app.socket)
         calibrate = app._calibration_path
 
-        def timed(frame):
+        def timed(frame, real_start):
             t0 = time.perf_counter()
-            calibrate(frame)
+            calibrate(frame, real_start)
             holder.setdefault("calib_s", []).append(time.perf_counter() - t0)
 
         app._calibration_path = timed
@@ -1322,6 +1360,367 @@ def run_pair_height(torch) -> dict:
             "solved_heights_mm": heights, "true_height_mm": PAIR_H,
             "frame_sets": state["sets"], "max_bot_err_mm": worst,
             "max_ball_err_mm": ball_worst, "builds": builds.builds, "run_s": wall}
+
+
+REPLAY_FRAMES = 14  # frames of the replayed video
+REPLAY_WARM = 4  # frames before the stream's cost is measured (snapshots, debug images)
+REPLAY_GROUP, REPLAY_PORT = "224.99.99.65", 17651  # the App's vision and GC sockets
+REPLAY_STREAM_END = 66  # the debug stream's group: 224.99.99.(66 + cam_id)
+
+
+class Datagrams:
+    """Every datagram sent to ``group:port`` (a receive buffer of 8 MB,
+    for the stream's bursts of RTP packets)."""
+
+    def __init__(self, group: str, port: int):
+        import socket
+
+        from vision_processor_tpu_torch.net.udp import UDPSocket
+
+        self.got = []
+        got = self.got
+
+        class Sock(UDPSocket):
+            def _parse(self, data):
+                got.append(data)
+
+        self.sock = Sock(group, port)
+        self.sock.sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 8 << 20)
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+def access_units(packets) -> list:
+    """RTP/H.264 packets -> annex-B access units, one per RTP timestamp, in
+    arrival order (io/rtp.py depacketize_h264)."""
+    import struct
+
+    from vision_processor_tpu_torch.io.rtp import depacketize_h264
+
+    by_ts = {}
+    for pkt in packets:
+        by_ts.setdefault(struct.unpack("!I", pkt[4:8])[0], []).append(pkt)
+    return [depacketize_h264(group) for group in by_ts.values()]
+
+
+def write_replay_dataset(rig, root: Path) -> str:
+    """Rig camera 0's scene as REPLAY_FRAMES BGR frames in a video file
+    (the Bayer frame's own RGB, so no second render), its gt.yml and its
+    geometry.yml (the field and camera 0's calibration), in ``root``.
+    Returns the container and codec, as read back."""
+    import dataclasses
+
+    import cv2
+    import numpy as np
+    import yaml
+
+    from vision_processor_tpu_torch.models.camera import CameraModel
+
+    geometry, scenes, raws, (width, height) = rig
+    raw = raws[0]  # RGGB: r, g / g, b cells
+    bgr = np.ascontiguousarray(np.stack([raw[1::2, 1::2], raw[0::2, 1::2], raw[0::2, 0::2]],
+                                        axis=-1))
+    path = root / "scene.avi"
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), 30.0,
+                             (width, height))
+    if not writer.isOpened():
+        fail("replay: cv2 cannot write an MJPG AVI")
+    writer.set(cv2.VIDEOWRITER_PROP_QUALITY, 100)
+    for _ in range(REPLAY_FRAMES):
+        writer.write(bgr)
+    writer.release()
+    cap = cv2.VideoCapture(str(path))
+    fourcc = int(cap.get(cv2.CAP_PROP_FOURCC))
+    codec = "".join(chr((fourcc >> (8 * i)) & 0xFF) for i in range(4))
+    n, first = 0, None
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        first = frame if first is None else first
+        n += 1
+    cap.release()
+    if n != REPLAY_FRAMES or first is None or first.shape != bgr.shape:
+        fail(f"replay: read back {n} frames of {None if first is None else first.shape} "
+             f"from {path.name}, wrote {REPLAY_FRAMES} of {bgr.shape}")
+    calib = next(c for c in geometry.calib if c.camera_id == 0)
+    model = CameraModel.from_proto(calib)
+    (root / "geometry.yml").write_text(yaml.dump({
+        "field": FIELD["field"],
+        "calib": [{f.name: getattr(calib, f.name) for f in dataclasses.fields(calib)}]}))
+    truth = []
+    for f in range(REPLAY_FRAMES):
+        entry = {"camera_id": 0, "frame_number": f + 1, "t_capture": f / 30.0,
+                 "t_sent": f / 30.0, "balls": [], "robots_yellow": [], "robots_blue": []}
+        for ball in scenes[0].balls:
+            px = model.field2image(np.array([ball.x, ball.y, 0.0]))
+            entry["balls"].append({"confidence": 1.0, "x": ball.x, "y": ball.y,
+                                   "pixel_x": float(px[0]), "pixel_y": float(px[1])})
+        for bot in scenes[0].bots:
+            px = model.field2image(np.array([bot.x, bot.y, bot.height]))
+            entry[f"robots_{bot.team}"].append({
+                "confidence": 1.0, "robot_id": bot.bot_id, "x": bot.x, "y": bot.y,
+                "orientation": bot.orientation, "pixel_x": float(px[0]),
+                "pixel_y": float(px[1]), "height": bot.height})
+        truth.append(entry)
+    (root / "gt.yml").write_text(yaml.dump(truth))
+    return (f"AVI container, {codec} codec (cv2.VideoWriter, quality 100), "
+            f"{REPLAY_FRAMES} frames {width}x{height} BGR, read back {n}")
+
+
+def shipped_config(root: Path) -> Path:
+    """The repository's config.yml as shipped, with only what a run here has
+    to change: the camera path (the replayed video), the vision, GC and
+    stream addresses (an isolated group), a 200 ms snapshot interval and
+    the debug images."""
+    import yaml
+
+    config = yaml.safe_load((ROOT / "config.yml").read_text())
+    config["camera"] = {**(config.get("camera") or {}), "path": str(root / "scene.avi")}
+    config["network"] = {"vision_ip": REPLAY_GROUP, "vision_port": REPLAY_PORT,
+                         "gc_ip": REPLAY_GROUP, "gc_port": REPLAY_PORT + 1}
+    config["stream"] = {**(config.get("stream") or {}), "ip_base_prefix": "224.99.99.",
+                        "ip_base_end": REPLAY_STREAM_END, "port": REPLAY_PORT + 2}
+    config["debug"] = {**(config.get("debug") or {}), "debug_stream_interval_ms": 200,
+                       "debug_images": True}
+    path = root / "config.yml"
+    path.write_text(yaml.dump(config))
+    return path
+
+
+def _bench_lines(fn, argv) -> list:
+    """``fn(argv)``'s standard output, as lines; fails unless it returns 0."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(line)
+    if rc != 0:
+        fail(f"{fn.__module__}.main returned {rc}")
+    return lines
+
+
+# python/blob_benchmark.py's names for the values of the [BlobMachine] line
+BLOB_MACHINE_FIELDS = ("frames", "blobs", "error", "sq_error", "worst_blob", "percentile",
+                       "balls", "ball_error", "ball_sq", "bots", "bot_error", "bot_sq",
+                       "field_scale", "processing_time")
+
+
+def run_replay(torch, rig, native_build) -> dict:
+    """The debug stream and the file replay under the repository's
+    config.yml as shipped (``shipped_config``; the stream on by default,
+    the OPENCV driver): rig camera 0's frames replayed from a video file by
+    the ``App`` on the card, geometry from the GeometryBus, the debug
+    stream, snapshots and debug images written under OUT/replay/. Fails
+    unless the codec is h264-native, RTP packets arrive on the stream group
+    and depacketize into access units, the first behind its SPS and PPS,
+    the detection frames on the wire find the 4 robot ids within 30 mm and
+    the ball within 40 mm after the first, the four snapshots and the three
+    debug images decode at the views' shapes, each frame launched B2 and B3
+    once and B4 twice with B1 twice (warp) or E4 and B7 once (gather) and
+    B5, B6 never, and no tensor left the card inside ``device_step``. After
+    REPLAY_WARM frames the snapshots stop (the shipped interval, 0) and the
+    stream is switched off every other frame: the frame walls with the
+    stream on and off, and the device span of ``debug_views``, are printed.
+    Then ``app/blob_benchmark.py`` and ``app/geometry_benchmark.py`` on the
+    same dataset with ``--device cuda``: the ``[BlobMachine]`` line parses
+    into python/blob_benchmark.py's fields, 5 blobs a robot and 1 a ball
+    each frame, a finite error; ``[Model score]`` finite."""
+    phase("debug stream and replay: App under config.yml as shipped, the benchmarks")
+    import cv2
+
+    from vision_processor_tpu_torch.app import blob_benchmark, geometry_benchmark
+    from vision_processor_tpu_torch.app.main import App
+    from vision_processor_tpu_torch.io.rtp import split_annexb
+    from vision_processor_tpu_torch.ops import cuda as K
+
+    geometry, scenes, raws, (width, height) = rig
+    workdir = OUT / "replay"
+    workdir.mkdir(parents=True, exist_ok=True)
+    for old in [*workdir.glob(".*.1.png"), *(workdir / "img").glob("*.jpg")]:
+        old.unlink()
+    t_phase = t0 = time.perf_counter()
+    container = write_replay_dataset(rig, workdir)
+    cfg_path = shipped_config(workdir)
+    print(f"replay dataset: {container} ({time.perf_counter() - t0:.3f} s)")
+    native_build.join()
+    if native_build.info.get("lib") is None:
+        fail("replay: the native host library (io/native.py) did not build")
+    print(f"native host library {native_build.info['lib']._name}: built or loaded in "
+          f"{native_build.info['s']:.3f} s, beside the kernels' build")
+    bus = GeometryBus(geometry_packet(geometry, 0))
+    wire = Datagrams(REPLAY_GROUP, REPLAY_PORT)
+    rtp = Datagrams(f"224.99.99.{REPLAY_STREAM_END}", REPLAY_PORT + 2)
+    state = {"n": 0, "walls": {True: [], False: []}}
+    cwd = os.getcwd()
+    os.chdir(workdir)  # img/ and the debug images go under the working directory
+    try:
+        app = App(str(cfg_path), device=torch.device("cuda", 0))
+        cfg = app.config
+        if not cfg.stream_active or cfg.wait_for_geometry:
+            fail(f"replay: config.yml gives stream.active {cfg.stream_active}, "
+                 f"wait_for_geometry {cfg.wait_for_geometry}")
+        if app.streamer.codec != "h264-native":
+            fail(f"replay: the stream picked {app.streamer.codec}, not h264-native")
+        bus.attach(app.socket)
+        bus.publish()
+        proc = app.processor
+        step, detection_path, stream = (proc.device_step, app._detection_path,
+                                        app._stream_and_snapshot)
+
+        def audited_step(*args):
+            if state["n"] != 2:
+                return step(*args)
+            out, items, d2h = audit_device_step(torch, lambda: step(*args))
+            state["items"], state["d2h"] = items, d2h
+            return out
+
+        def timed_path(frame, start, real_start):
+            state["n"] += 1
+            on = state["n"] <= REPLAY_WARM or state["n"] % 2 == 0
+            if state["n"] == REPLAY_WARM + 1:
+                cfg.debug_stream_interval_ms = 0  # config.yml's own interval
+            state["on"] = on
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            detection_path(frame, start, real_start)
+            wall = (time.perf_counter() - t) * 1e3
+            if state["n"] > REPLAY_WARM:
+                state["walls"][on].append(wall)
+
+        def switched_stream(frame, real_start):
+            if state["on"]:
+                stream(frame, real_start)
+
+        proc.device_step = audited_step
+        app._detection_path = timed_path
+        app._stream_and_snapshot = switched_stream
+        K.reset_launches()
+        t0 = time.perf_counter()
+        app.run()  # closes the App, its streamer and its snapshot writer
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        time.sleep(0.3)
+    finally:
+        os.chdir(cwd)
+        wire.close()
+        rtp.close()
+    from vision_processor_tpu_torch.proto import SSL_WrapperPacket
+
+    dets = []
+    for data in wire.got:
+        msg = SSL_WrapperPacket()
+        msg.ParseFromString(data)
+        if msg.HasField("detection"):
+            dets.append(msg)
+    if len(dets) != REPLAY_FRAMES:
+        fail(f"replay: {len(dets)} detection frames on the wire, expected {REPLAY_FRAMES}")
+    worst = ball_worst = 0.0
+    for f, wrapper in enumerate(dets[1:], start=1):
+        _, err, berr = check_detections(f"replay detection frame {f}", scenes[0], wrapper)
+        worst, ball_worst = max(worst, err), max(ball_worst, berr)
+    units = access_units(rtp.got)
+    if not units:
+        fail("replay: no RTP packets on the stream group")
+    nals = [[nal[0] & 0x1F for nal in split_annexb(au)] for au in units]
+    if nals[0][:2] != [7, 8] or 5 not in nals[0]:
+        fail(f"replay: the first access unit's NAL units are {nals[0][:4]}, not SPS, PPS, "
+             f"IDR")
+    if any(not n for n in nals):
+        fail("replay: an access unit held no NAL unit")
+    hf, wf = proc._bm_cfg.flat_shape
+    images = {f".{n}.1.png": (hf, wf, 3) for n in ("flat", "gradDot", "blob")}
+    images.update({f"img/0.{n}.jpg": (hf, wf, 3) for n in ("flat", "gradient", "blob")})
+    images["img/0.raw.jpg"] = (height, width, 3)
+    for name, shape in images.items():
+        img = cv2.imread(str(workdir / name))
+        if img is None or img.shape != shape:
+            fail(f"replay: {name} is {None if img is None else img.shape}, expected {shape}")
+    mode = proc.resample_mode
+    want = {name: 0 for name in launches}
+    want.update(blob_response_fused=1, row_topk=1, query_select_topk=2)
+    if mode == "warp":
+        want.update(band_pass=2)
+    else:
+        want.update(corner_stack=1, gather_corners=1)
+    check_launches("replay", launches, want, REPLAY_FRAMES)
+    if state.get("d2h") or state.get("items", 3) > 2:
+        fail(f"replay: device_step moved {state.get('d2h')} to the host, "
+             f"{state.get('items')} reads")
+    # the cost of streaming: debug_views' device span (every view, as a
+    # snapshot renders them; one view, as the stream does) and the frame walls
+    bgr = cv2.VideoCapture(str(workdir / "scene.avi")).read()[1]
+    spans = {}
+    for label, keys in (("four views", None), ("one view", ("raw_rgb",))):
+        args = (bgr, "BGR") if keys is None else (bgr, "BGR", keys)
+        for _ in range(3):
+            proc.debug_views(*args)
+        ms = []
+        for _ in range(10):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            proc.debug_views(*args)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        spans[label] = statistics.median(ms)
+    on, off = (statistics.median(state["walls"][k]) for k in (True, False))
+    print(f"replay: BGR frame {width}x{height} resolved to {mode}; {len(dets)} detection "
+          f"frames on the wire, max bot err {worst:.2f} mm, max ball err {ball_worst:.2f} "
+          f"mm; launches {launches}; device->host reads in device_step "
+          f"{state['items']}, no tensor left the card")
+    print(f"replay: stream {app.streamer.codec}, {len(rtp.got)} RTP packets, "
+          f"{len(units)} access units ({sum(map(len, units))} bytes; first NAL types "
+          f"{nals[0][:3]}); snapshots and debug images written {sorted(images)}; run "
+          f"{wall:.3f} s")
+    print(f"cost of streaming: debug_views device span, median of 10: four views "
+          f"{spans['four views']:.3f} ms, one view {spans['one view']:.3f} ms; frame wall "
+          f"(the detection path, medians of {len(state['walls'][True])} and "
+          f"{len(state['walls'][False])} alternating frames) stream on {on:.3f} ms, "
+          f"off {off:.3f} ms")
+
+    t0 = time.perf_counter()
+    os.chdir(workdir)  # the config's ground_truth (gt.yml) is relative to it
+    try:
+        argv = [str(cfg_path), "--device", "cuda"]
+        blob_lines = _bench_lines(blob_benchmark.main, argv)
+        geom_lines = _bench_lines(geometry_benchmark.main, argv)
+    finally:
+        os.chdir(cwd)
+    bench_s = time.perf_counter() - t0
+    machine = [ln for ln in blob_lines if ln.startswith("[BlobMachine]")]
+    values = machine[0].split()[1:] if len(machine) == 1 else []
+    if len(values) != len(BLOB_MACHINE_FIELDS):
+        fail(f"blob benchmark: {machine} does not parse into {len(BLOB_MACHINE_FIELDS)} "
+             f"fields")
+    blob = dict(zip(BLOB_MACHINE_FIELDS, map(float, values)))
+    per_frame = 5 * len(scenes[0].bots) + len(scenes[0].balls)
+    if blob["frames"] != REPLAY_FRAMES or blob["blobs"] != per_frame * REPLAY_FRAMES:
+        fail(f"blob benchmark: {blob['blobs']:.0f} blobs in {blob['frames']:.0f} frames, "
+             f"expected {per_frame} a frame in {REPLAY_FRAMES}")
+    if not all(map(math.isfinite, blob.values())):
+        fail(f"blob benchmark: a value is not finite: {blob}")
+    score = [ln for ln in geom_lines if ln.startswith("[Model score]")]
+    model_score = float(score[0].split()[2]) if len(score) == 1 else float("nan")
+    if not math.isfinite(model_score):
+        fail(f"geometry benchmark: no finite [Model score] in {score}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"benchmarks: {bench_s:.3f} s; blob error {blob['error'] / blob['blobs']:.3f} mm "
+          f"a blob, model score {model_score}; the phase {phase_s:.3f} s")
+    return {"container": container, "resample_mode": mode, "launches": launches,
+            "detections": len(dets), "max_bot_err_mm": worst, "max_ball_err_mm": ball_worst,
+            "rtp_packets": len(rtp.got), "access_units": len(units),
+            "debug_views_ms": spans, "frame_wall_ms": {"stream_on": on, "stream_off": off},
+            "frame_walls_ms": {"on": state["walls"][True], "off": state["walls"][False]},
+            "blob_machine": blob, "blob_machine_line": machine[0],
+            "model_score": model_score, "run_s": wall, "benchmarks_s": bench_s,
+            "phase_s": phase_s}
 
 
 def _e1_inputs(torch):
@@ -2564,6 +2963,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke runs only on a GPU")
     card = environment(torch)
+    native_build = start_native_build()
     build()
     before = None
     if args.before:
@@ -2588,6 +2988,7 @@ def main() -> None:
     idle = run_idle(torch, rig)
     calib = run_calibration(torch, rig)
     pair = run_pair_height(torch)
+    replay = run_replay(torch, rig, native_build)
     contracts = run_contracts(torch)
     for label, s, unit in (("slice 1 (warp, score-first)", s1, "frame"),
                            ("slice 2 (gather, circ-first, fused combo)", s2, "frame"),
@@ -2653,6 +3054,7 @@ def main() -> None:
         "idle path": idle,
         "calibration path": calib,
         "pair height": pair,
+        "debug stream and replay": replay,
     }, indent=1))
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))

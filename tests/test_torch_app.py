@@ -2,17 +2,22 @@
 publisher + App + detection recorder over an isolated multicast group (the
 pattern of tests/test_app_integration.py), the idle path before geometry
 under the default config, the calibration path of a camera with geometry
-and no calibration, and the NotImplementedError guards of the paths the
-port does not carry yet.
+and no calibration, the debug stream (RTP packets that depacketize into
+H.264 access units) and the debug images, the shipped configs, and the
+NotImplementedError guards of the camera drivers the port does not carry
+yet.
 """
 import threading
 import time
+from pathlib import Path
 
 import pytest
 import torch
 import yaml
 
 GROUP, PORT = "224.99.99.43", 17585
+STREAM_GROUP_END, STREAM_PORT = 45, 17587  # the debug stream's group: 224.99.99.45
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -44,7 +49,8 @@ def _write_config(tmp_path, **overrides):
             "vision_ip": GROUP, "vision_port": PORT,
             "gc_ip": "224.99.99.44", "gc_port": 17586,
         },
-        "stream": {"active": False},
+        "stream": {"active": False, "ip_base_prefix": "224.99.99.",
+                   "ip_base_end": STREAM_GROUP_END, "port": STREAM_PORT},
         "debug": {"wait_for_geometry": True},
         "thresholds": {"blobs": 128},
     }
@@ -150,10 +156,21 @@ def test_app_full_loop(tmp_path, publisher, divb_field, overhead_model, monkeypa
     {"debug": {"debug_stream_interval_ms": 100}},
 ])
 def test_app_refuses_unported_outputs(tmp_path, overrides):
+    """Named for the guard it replaces: the debug stream, the debug images
+    and the interval snapshots are ported, and the App takes each of them
+    (the stream with the native H.264 encoder, built from native/)."""
     from vision_processor_tpu_torch.app.main import App
+    from vision_processor_tpu_torch.io.camera import CameraDriver, register_driver
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        App(str(_write_config(tmp_path, **overrides)), device="cpu")
+    register_driver("SYNTHETIC", lambda cam_cfg: CameraDriver())
+    debug = {"wait_for_geometry": False, **overrides.get("debug", {})}
+    app = App(str(_write_config(tmp_path, **{**overrides, "debug": debug})), device="cpu")
+    try:
+        assert app.streamer.active == overrides.get("stream", {}).get("active", False)
+        assert app.streamer.codec == ("h264-native" if app.streamer.active else None)
+        assert app.config.debug_images == bool(overrides.get("debug", {}).get("debug_images"))
+    finally:
+        app.close()
 
 
 IDLE_FRAMES = 100  # the idle path saves frame 100
@@ -372,11 +389,157 @@ def test_geometry_builds_the_blob_kernel_ahead(divb_field, overhead_model, monke
     assert len(built) == 2
 
 
-def test_open_camera_refuses_unported_drivers():
+def test_open_camera_refuses_unported_drivers(tmp_path):
+    """The V4L2, vendor and GenICam drivers raise naming their ROADMAP item;
+    OPENCV (the default) is the file replay now: a missing image raises
+    FileNotFoundError."""
     from vision_processor_tpu.utils.config import CameraSection
-    from vision_processor_tpu_torch.io.camera import open_camera
+    from vision_processor_tpu_torch.io.camera import OpenCVDriver, open_camera
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        open_camera(CameraSection(driver="OPENCV"))
+    for name in ("V4L2", "SPINNAKER", "MVIMPACT", "GENICAM", "ARAVIS"):
+        with pytest.raises(NotImplementedError, match="Port: camera drivers"):
+            open_camera(CameraSection(driver=name))
+    with pytest.raises(FileNotFoundError):
+        open_camera(CameraSection(driver="OPENCV", path=str(tmp_path / "none.png")))
+    import cv2
+    import numpy as np
+
+    cv2.imwrite(str(tmp_path / "one.png"), np.zeros((4, 6, 3), np.uint8))
+    assert isinstance(open_camera(CameraSection(path=str(tmp_path / "one.png"))),
+                      OpenCVDriver)
     with pytest.raises(ValueError):
         open_camera(CameraSection(driver="NOPE"))
+
+
+class _Packets:
+    """Every datagram sent to ``group:port``, as bytes."""
+
+    def __init__(self, group, port):
+        from vision_processor_tpu_torch.net.udp import UDPSocket
+
+        self.got = []
+        got = self.got
+
+        class Sock(UDPSocket):
+            def _parse(self, data):
+                got.append(data)
+
+        self.sock = Sock(group, port)
+
+    def close(self):
+        self.sock.close()
+
+
+def _access_units(packets) -> list:
+    """RTP/H.264 packets -> annex-B access units, one per RTP timestamp in
+    arrival order (io/rtp.py depacketize_h264)."""
+    import struct
+
+    from vision_processor_tpu_torch.io.rtp import RTP_H264_PT, depacketize_h264
+
+    by_ts = {}
+    for pkt in packets:
+        assert pkt[1] & 0x7F == RTP_H264_PT
+        by_ts.setdefault(struct.unpack("!I", pkt[4:8])[0], []).append(pkt)
+    return [depacketize_h264(group) for group in by_ts.values()]
+
+
+def _nal_types(access_unit: bytes) -> list:
+    from vision_processor_tpu_torch.io.rtp import split_annexb
+
+    return [nal[0] & 0x1F for nal in split_annexb(access_unit)]
+
+
+def _detections(received):
+    out = {}
+    for d in received:
+        bots = sorted((team, r.robot_id, r.x, r.y, r.orientation)
+                      for team, robots in (("y", d.robots_yellow), ("b", d.robots_blue))
+                      for r in robots)
+        out[d.frame_number] = (bots, sorted((b.x, b.y) for b in d.balls))
+    return out
+
+
+def test_app_streams_rtp_with_equal_detections(tmp_path, publisher, divb_field,
+                                               overhead_model, monkeypatch):
+    """With stream.active on an isolated group, debug images and 1 ms
+    snapshots, the App's detection frames stream H.264 over RTP: the packets
+    depacketize into access units, the first an IDR picture behind its SPS
+    and PPS; the detections equal those of the same frames with the stream
+    off; the debug images and the four snapshots are written to the
+    working directory at the views' shapes."""
+    import cv2
+
+    from vision_processor_tpu_torch.io.synthetic import Scene, SceneBall, SceneBot
+
+    monkeypatch.chdir(tmp_path)
+    scene = Scene(bots=[SceneBot(5, "yellow", -2600.0, 400.0, 1.1)],
+                  balls=[SceneBall(-3200.0, -1100.0)], noise_sigma=1.0)
+    _, plain = _run_app(_write_config(tmp_path), scene, divb_field, overhead_model,
+                        frames=4)
+    rtp = _Packets(f"224.99.99.{STREAM_GROUP_END}", STREAM_PORT)
+    try:
+        app, streamed = _run_app(
+            _write_config(tmp_path, stream={"active": True},
+                          debug={"debug_images": True, "debug_stream_interval_ms": 1}),
+            scene, divb_field, overhead_model, frames=4)
+        time.sleep(0.3)
+    finally:
+        rtp.close()
+    assert app.streamer.codec == "h264-native"
+    assert len(plain) == 4
+    assert _detections(streamed) == _detections(plain)
+    units = _access_units(rtp.got)
+    assert units, "no RTP packets on the stream group"
+    assert _nal_types(units[0])[:3] == [7, 8, 5]  # SPS, PPS, IDR slice
+    hf, wf = app.processor._bm_cfg.flat_shape
+    for name in (".flat.1.png", ".gradDot.1.png", ".blob.1.png"):
+        img = cv2.imread(str(tmp_path / name))
+        assert img is not None and img.shape == (hf, wf, 3), name
+    for name, shape in (("raw", (720, 960, 3)), ("flat", (hf, wf, 3)),
+                        ("gradient", (hf, wf, 3)), ("blob", (hf, wf, 3))):
+        img = cv2.imread(str(tmp_path / "img" / f"0.{name}.jpg"))
+        assert img is not None and img.shape == shape, name
+
+
+def _shipped_config(tmp_path, name: str, image: Path, port: int) -> Path:
+    """The repository's ``name`` as shipped, with the camera path and the
+    vision, GC and stream addresses moved to an isolated group."""
+    config = yaml.safe_load((ROOT / name).read_text())
+    config["camera"] = {**(config.get("camera") or {}), "path": str(image)}
+    config["network"] = {"vision_ip": "224.99.99.47", "vision_port": port,
+                         "gc_ip": "224.99.99.47", "gc_port": port + 1}
+    config["stream"] = {**(config.get("stream") or {}), "ip_base_prefix": "224.99.99.",
+                        "ip_base_end": 48, "port": port + 2}
+    path = tmp_path / f"moved-{name}"
+    path.write_text(yaml.dump(config))
+    return path
+
+
+@pytest.mark.parametrize("name", ["config.yml", "config-minimal.yml"])
+def test_apps_start_under_the_shipped_configs(tmp_path, monkeypatch, name):
+    """App and MultiCamApp under config.yml and config-minimal.yml as
+    shipped (the stream on by default, the OPENCV driver), the camera path
+    pointed at a one-frame image and the addresses moved: both construct,
+    pick the native H.264 encoder, replay the frame through the idle path
+    (no geometry) and close."""
+    import cv2
+    import numpy as np
+
+    from vision_processor_tpu_torch.app.main import App
+    from vision_processor_tpu_torch.app.multicam_app import MultiCamApp
+    from vision_processor_tpu_torch.io.camera import OpenCVDriver
+
+    monkeypatch.chdir(tmp_path)
+    image = tmp_path / "frame.png"
+    rng = np.random.default_rng(0)
+    cv2.imwrite(str(image), rng.integers(0, 256, (36, 64, 3), dtype=np.uint8))
+    path = _shipped_config(tmp_path, name, image, 17591)
+    app = App(str(path), device="cpu")
+    assert app.config.stream_active and not app.config.wait_for_geometry
+    assert app.streamer.codec == "h264-native"
+    assert isinstance(app.camera, OpenCVDriver)
+    app.run()  # one idle frame, then the end of the replay; closes the App
+    fleet = MultiCamApp([str(path), str(path)], device="cpu")
+    assert [s.codec for s in fleet.streamers] == ["h264-native"] * 2
+    fleet.run()

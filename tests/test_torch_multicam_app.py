@@ -93,10 +93,10 @@ def _register(name, fleet, frames, outage=()):
     register_driver(name, lambda cam_cfg: Cached(int(cam_cfg.path)))
 
 
-def _configs(tmp_path, driver, port, ports=None, wait=True, geometry=None):
+def _configs(tmp_path, driver, port, ports=None, wait=True, geometry=None, debug=None):
     """One config per camera; ``ports``: each camera's vision port (default
     all ``port``); ``geometry``: camera -> more keys of its geometry
-    section."""
+    section; ``debug``: more keys of every debug section."""
     paths = []
     for c in range(N_CAMS):
         config = {
@@ -107,7 +107,7 @@ def _configs(tmp_path, driver, port, ports=None, wait=True, geometry=None):
             "network": {"vision_ip": GROUP, "vision_port": ports[c] if ports else port,
                         "gc_ip": "224.99.99.102", "gc_port": port + 1},
             "stream": {"active": False},
-            "debug": {"wait_for_geometry": wait},
+            "debug": {"wait_for_geometry": wait} | (debug or {}),
             "thresholds": {"blobs": 128},
         }
         p = tmp_path / f"{driver}{c}.yml"
@@ -434,14 +434,74 @@ def test_main_dispatches_on_the_config_count(monkeypatch):
     {"debug": {"debug_images": True}},
     {"debug": {"debug_stream_interval_ms": 100}},
 ])
-def test_multicam_refuses_unported_paths(tmp_path, overrides):
+def test_multicam_refuses_unported_paths(tmp_path, fleet, overrides):
+    """Named for the guard it replaces: the fleet takes the debug stream
+    (one streamer per camera, on an isolated group), the debug images and
+    the snapshots."""
     from vision_processor_tpu_torch.app.multicam_app import MultiCamApp
 
+    _register("SYNTH_MC_DEBUG", fleet, frames=1)
     paths = []
     for c in range(N_CAMS):
-        config = {"cam_id": c, "stream": {"active": False}} | overrides
+        config = {"cam_id": c, "camera": {"driver": "SYNTH_MC_DEBUG", "path": str(c)},
+                  "network": {"vision_ip": GROUP, "vision_port": PORT + 30,
+                              "gc_ip": "224.99.99.102", "gc_port": PORT + 31},
+                  "stream": {"active": False, "ip_base_prefix": "224.99.99.",
+                             "ip_base_end": 110, "port": PORT + 32}}
+        for key, val in overrides.items():
+            config[key] = config.get(key, {}) | val
         p = tmp_path / f"refuse{c}.yml"
         p.write_text(yaml.dump(config))
         paths.append(str(p))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        MultiCamApp(paths, device="cpu")
+    app = MultiCamApp(paths, device="cpu")
+    try:
+        active = overrides.get("stream", {}).get("active", False)
+        assert [s.active for s in app.streamers] == [active] * N_CAMS
+        assert [s.codec for s in app.streamers] == ["h264-native" if active else None] * N_CAMS
+        assert app.snapshots is not None
+    finally:
+        app.close()
+
+
+def test_debug_render_failure_leaves_multicam_run(tmp_path, fleet, monkeypatch):
+    """The fleet's debug render runs one camera a frame-set, round-robin. A
+    KernelError raised inside it ends run() with that error; any other
+    exception is logged and the fleet goes on detecting."""
+    from vision_processor_tpu_torch.app.processor import Processor
+    from vision_processor_tpu_torch.ops.cuda import KernelError
+
+    monkeypatch.chdir(tmp_path)
+    calls = []
+
+    def failing(err):
+        def debug_views(self, raw, fmt, keys=()):
+            calls.append((self.config.cam_id, err))
+            raise err("render refused")
+        return debug_views
+
+    def run(err, driver):
+        monkeypatch.setattr(Processor, "debug_views", failing(err))
+        _register(driver, fleet, frames=3)
+        bus = _Bus(fleet, PORT + 34)
+        try:
+            app = MultiCamApp(_configs(tmp_path, driver, PORT + 34,
+                                       debug={"debug_stream_interval_ms": 1}), device="cpu")
+            try:
+                app.run()
+            except BaseException:
+                app.close()
+                raise
+            time.sleep(0.3)
+        finally:
+            bus.close()
+        return bus.by_cam
+
+    from vision_processor_tpu_torch.app.multicam_app import MultiCamApp
+
+    with pytest.raises(KernelError, match="render refused"):
+        run(KernelError, "SYNTH_MC_DKE")
+    assert calls == [(1, KernelError)]
+    by_cam = run(RuntimeError, "SYNTH_MC_DRE")
+    assert calls[1:] == [(1, RuntimeError), (0, RuntimeError), (1, RuntimeError)]
+    for cam in range(N_CAMS):
+        assert [d.frame_number for d in by_cam[cam]] == [1, 2, 3]

@@ -7,16 +7,20 @@ One config runs ``App``; more than one run ``MultiCamApp``
 
 Counterpart of vision_processor_tpu/app/main.py (reference
 src/main.cpp:251-427): read frame -> adopt geometry -> detection path ->
-multicast the detection frame, with the one-frame device/host overlap.
-Before any geometry arrives the idle path runs: it saves the demosaiced
-frame 100 as ``img/<cam_id>.raw.jpg``. With field geometry but no
-calibration for this camera the calibration path runs: the frame is
-demosaiced on the App's device, calibrated from its field lines on the host
-(``calib/``, which imports scipy and cv2 when first used) and the model
-broadcast; it is adopted when it comes back over the bus. The debug
-outputs (H.264/JPEG stream, debug images, interval snapshots) are not
-ported yet; reaching one raises NotImplementedError naming the ROADMAP.md
-item that ports it.
+multicast the detection frame, with the one-frame device/host overlap, then
+the debug side channels: the RTP stream of one debug view (``io/rtp.py``)
+and the interval snapshots ``img/<cam_id>.{raw,flat,gradient,blob}.jpg``
+(``app/debug_io.py``, views rendered on the App's device), and with
+``debug_images`` the ``.flat.1.png``, ``.gradDot.1.png`` and
+``.blob.1.png`` of the first detection frame (all relative to the working
+directory). Before any geometry arrives the idle path streams the
+demosaiced frame, snapshots it on the interval and saves frame 100 as
+``img/<cam_id>.raw.jpg``. With field geometry but no calibration for this
+camera the calibration path runs: the frame is demosaiced on the App's
+device, calibrated from its field lines on the host (``calib/``, which
+imports scipy and cv2 when first used), the model broadcast and the frame
+snapshotted on the interval; the model is adopted when it comes back over
+the bus.
 """
 from __future__ import annotations
 
@@ -31,22 +35,18 @@ import torch
 import yaml
 
 from ..io.camera import open_camera
+from ..io.rtp import RTPStreamer
 from ..io.snapshot import SnapshotWriter
 from ..net.udp import GCSocket, VisionSocket, get_real_time
-from ..ops.cuda import KernelError
+from ..ops.cuda import DEVICE_ERRORS
 from ..ops.frame import quad2rgba, raw2quad
 from ..utils.config import VisionConfig
 from ..utils.log import get_logger
 from ..utils.timing import FrameStats, StageTimer
+from .debug_io import emit_debug_views, emit_idle_raw, snapshot_due
 from .processor import Processor, TrackedArrays
 
 log = get_logger(__name__)
-
-_ROADMAP_DEBUG = "ROADMAP.md, 'Port: debug views, quad2rgba/nv12 and the debug stream (A8)'"
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 def demosaic(frame, device) -> np.ndarray:
@@ -73,10 +73,6 @@ class App:
     def __init__(self, config_path: str | None, device="cuda"):
         self.config = VisionConfig.load(config_path)
         cfg = self.config
-        if cfg.stream_active:
-            raise _unported("the debug stream (stream.active)", _ROADMAP_DEBUG)
-        if cfg.debug_images or cfg.debug_stream_interval_ms > 0:
-            raise _unported("debug images and snapshots", _ROADMAP_DEBUG)
 
         heights_path = Path(cfg.bot_heights_file)
         if heights_path.exists():
@@ -91,8 +87,11 @@ class App:
         self.camera = open_camera(cfg.camera)
         self.device = torch.device(device)
         self.processor = Processor(cfg, self.socket, self.gc_socket, device=self.device)
+        self.streamer = RTPStreamer(cfg.stream_active, cfg.stream_url(), qp=cfg.stream_qp,
+                                    bitrate_kbps=cfg.stream_bitrate_kbps, gop=cfg.stream_gop)
         self.snapshots = SnapshotWriter()
         self.running = True
+        self._last_snapshot = 0.0
 
         self.frame_stats = FrameStats()
         self.frame_stats_timer = StageTimer(self.device)
@@ -128,14 +127,14 @@ class App:
             if not self.processor.perspective.geometry_version and self.socket.geometry_version:
                 # outside the per-frame guard: a failure of the demosaic on
                 # the card or of the calibration code ends run()
-                self._calibration_path(frame)
+                self._calibration_path(frame, real_start)
                 continue
             try:
                 if self.processor.perspective.geometry_version:
                     self._detection_path(frame, start, real_start)
                 else:
-                    self._idle_path(frame, frame_id)
-            except (NotImplementedError, KernelError):
+                    self._idle_path(frame, frame_id, real_start)
+            except (NotImplementedError, *DEVICE_ERRORS):
                 raise
             except Exception:  # keep the camera loop alive on transient
                 log.exception("frame %d failed, continuing", frame_id)
@@ -171,6 +170,15 @@ class App:
         self.socket.send(wrapper)
         self.socket.update_time()
 
+        if self.config.debug_images and self.processor.frame_id == 1:
+            import cv2
+
+            views = self.processor.debug_views(frame.data, frame.fmt,
+                                               ("flat_rgb", "grad_rgb", "circ_rgb"))
+            for name, key in (("flat", "flat_rgb"), ("gradDot", "grad_rgb"),
+                              ("blob", "circ_rgb")):
+                cv2.imwrite(f".{name}.1.png", views[key][..., ::-1])
+
         processing = get_real_time() - real_start
         overrun = self.frame_stats.add(processing, self.camera.expected_frametime())
         if overrun:
@@ -187,12 +195,15 @@ class App:
             self.frame_stats_timer.print_runtimes()
             self.frame_stats_timer.clear()
 
-    def _calibration_path(self, frame):
+        self._stream_and_snapshot(frame, real_start)
+
+    def _calibration_path(self, frame, real_start):
         """Field geometry without this camera's calibration: calibrate from
         the frame's field lines and broadcast the model on the App's socket
         (JAX app/main.py _calibration_path); the next ``geometry_check``
         adopts it once it comes back over the bus. A calibration that
-        finds no model is logged and tried again on the next frame."""
+        finds no model is logged and tried again on the next frame. The
+        demosaiced frame is snapshotted on the interval either way."""
         from ..calib.geometry import geometry_calibration
 
         rgb = demosaic(frame, self.device)
@@ -200,22 +211,37 @@ class App:
         if model is None:
             log.warning("camera %d: no calibration found, trying the next frame",
                         self.config.cam_id)
-            return
-        self.socket.send(calibration_packet(self.socket.geometry, model,
-                                            self.config.cam_id))
+        else:
+            self.socket.send(calibration_packet(self.socket.geometry, model,
+                                                self.config.cam_id))
+        self._maybe_snapshot_raw(rgb, real_start)
 
-    def _idle_path(self, frame, frame_id):
-        """No geometry yet: save the demosaiced frame 100 as the sample
-        image (JAX app/main.py _idle_path). The stream and the interval
-        snapshots, which would demosaic every frame, are refused at
-        construction."""
-        if frame_id != 100:
-            return
-        self.snapshots.offer(demosaic(frame, self.device),
-                             f"img/{self.config.cam_id}.raw.jpg")
-        log.info("Saved sample image")
+    def _idle_path(self, frame, frame_id, real_start):
+        """No geometry yet: stream the demosaiced frame so the operator can
+        aim the camera, snapshot it on the interval, and save frame 100 as
+        the sample image (JAX app/main.py _idle_path)."""
+        self._last_snapshot = emit_idle_raw(
+            self.streamer, self.snapshots, self.config, frame, real_start,
+            self._last_snapshot, self.device, force_snapshot=frame_id == 100,
+        )
+        if frame_id == 100:
+            log.info("Saved sample image")
+
+    # -- debug output -------------------------------------------------------
+
+    def _stream_and_snapshot(self, frame, real_start):
+        self._last_snapshot = emit_debug_views(
+            self.processor, self.streamer, self.snapshots, self.config,
+            frame, self.camera.get_time(), real_start, self._last_snapshot,
+        )
+
+    def _maybe_snapshot_raw(self, rgb, real_start):
+        if snapshot_due(self.config, real_start, self._last_snapshot):
+            self.snapshots.offer(rgb, f"img/{self.config.cam_id}.raw.jpg")
+            self._last_snapshot = real_start
 
     def close(self):
+        self.streamer.close()
         self.snapshots.close()
         self.socket.close()
         self.gc_socket.close()

@@ -19,9 +19,14 @@ and its model broadcast. An explicit ``camera_height: 0.0`` in some config
 of a fleet of two or more asks for the rig-height solve from camera pairs
 (``calib/pair.py``): robot detections seen by two cameras are gathered
 until there are ``_height_obs_target`` of them, and the solved height is
-broadcast once. Both import scipy (``calib/``) only when they run. Not
-ported yet, and refused where they would run: the debug stream, debug
-images and snapshots, and with them the idle views (ROADMAP A2).
+broadcast once. Both import scipy (``calib/``) only when they run.
+
+Each camera has its own debug stream (``io/rtp.py``), fed round-robin, one
+camera's views a frame-set, so an N-camera fleet streams each camera at
+frame rate / N; the interval snapshots share one writer. Before its
+geometry arrives a camera streams its demosaiced frame instead (the idle
+views). Errors of the debug stream are logged and the fleet goes on, except
+a failure of the card or an unported path, which ends ``run()``.
 The staggered plan enqueues every camera's core on the current stream; one
 stream per camera is ROADMAP D1.
 """
@@ -39,11 +44,13 @@ import torch
 import yaml
 
 from ..io.camera import open_camera
+from ..io.rtp import RTPStreamer
+from ..io.snapshot import SnapshotWriter
 from ..models.detector import DetectorConfig
 from ..models.device_finish import pack_field_marks
 from ..net.udp import GCSocket, VisionSocket, get_real_time
 from ..ops import blob as B
-from ..ops.cuda import KernelError
+from ..ops.cuda import DEVICE_ERRORS
 from ..ops.pipeline import BlobMachineConfig
 from ..ops.warp import resolve_resample_mode
 from ..parallel.multicam import (
@@ -53,7 +60,8 @@ from ..parallel.multicam import (
 from ..utils.config import VisionConfig
 from ..utils.log import get_logger
 from ..utils.state import to_numpy, to_torch
-from .main import _ROADMAP_DEBUG, _unported, calibration_packet, demosaic
+from .debug_io import emit_debug_views, emit_idle_raw
+from .main import calibration_packet, demosaic
 from .processor import Processor, TrackedArrays
 
 log = get_logger(__name__)
@@ -89,6 +97,14 @@ class MultiCamApp:
         self.processors = [Processor(c, s, self.gc_socket, device=self.device)
                            for c, s in zip(configs, self.sockets)]
         self.cameras = [open_camera(c.camera) for c in configs]
+        # one debug stream per camera, one snapshot writer, as the
+        # reference's per-process side channels
+        self.streamers = [
+            RTPStreamer(c.stream_active, c.stream_url(), qp=c.stream_qp,
+                        bitrate_kbps=c.stream_bitrate_kbps, gop=c.stream_gop)
+            for c in configs
+        ]
+        self.snapshots = SnapshotWriter()
         if cfg0.wait_for_geometry:
             log.info("Waiting for geometry on %d sockets...", self.n_cams)
             while any(s.geometry_version == 0 for s in self.sockets):
@@ -109,15 +125,12 @@ class MultiCamApp:
         app.sockets = []
         app.processors = [Processor(c, device=app.device) for c in configs]
         app.cameras = []
+        app.streamers = []
+        app.snapshots = None
         return app
 
     def _setup(self, configs: list[VisionConfig], device) -> None:
         """State shared by the wired and the offline fleet."""
-        for c in configs:
-            if c.stream_active:
-                raise _unported("the debug stream (stream.active)", _ROADMAP_DEBUG)
-            if c.debug_images or c.debug_stream_interval_ms > 0:
-                raise _unported("debug images and snapshots", _ROADMAP_DEBUG)
         # rig-height calibration (reference config.yml: `camera_height: 0.0`
         # calibrates the height; one camera's fit cannot separate height
         # from focal length for a near-nadir view): from two or more
@@ -163,6 +176,7 @@ class MultiCamApp:
         self._last_frames = None
         self._stale_prev = [False] * self.n_cams
         self._read_pending: dict = {}
+        self._last_snapshot = [0.0] * self.n_cams
 
     def stop(self, *_):
         self.running = False
@@ -210,6 +224,11 @@ class MultiCamApp:
         self._core_step = percam_core_step(self.mc_cfg)
         self._tail_step = staggered_tail_step(self.mc_cfg)
         self._geom_key = key
+        # each camera's own pipeline config, for its debug views at its own
+        # flat shape
+        for proc in self.processors:
+            proc._bm_cfg = BlobMachineConfig.from_perspective(
+                proc.perspective, fmt, tuple(raw_shape), max_blobs=bm.max_blobs)
         log.info("Configured %d-camera pipeline: raw=%s flat=%s max_blobs=%d mode=%s",
                  self.n_cams, raw_shape, bm.flat_shape, bm.max_blobs, mode)
         return True
@@ -471,19 +490,30 @@ class MultiCamApp:
         log.info("pair height calibration applied: rig height %.0f mm broadcast for "
                  "%d of %d cameras", h, len(free), self.n_cams)
 
-    def _idle_views(self, frame_id: int) -> None:
-        """Before its geometry arrives, a camera would stream its raw
-        demosaic for aiming, one camera per frame-set (JAX multicam_app.py
-        _idle_views). With the stream off and no snapshot interval, the
-        only settings the fleet accepts (ROADMAP A2), there is nothing to
-        emit."""
+    def _stream_and_snapshot(self, frames, frame_id: int, real_start: float) -> None:
+        """Debug stream and snapshots, one camera per frame-set, round-robin
+        (JAX multicam_app.py _stream_and_snapshot): each camera streams at
+        frame rate / n_cams."""
+        c = frame_id % self.n_cams
+        proc = self.processors[c]
+        if proc._bm_cfg is None:
+            return
+        self._last_snapshot[c] = emit_debug_views(
+            proc, self.streamers[c], self.snapshots, self.configs[c], frames[c],
+            self.cameras[c].get_time(), real_start, self._last_snapshot[c],
+        )
+
+    def _idle_views(self, frames, frame_id: int, real_start: float) -> None:
+        """Before its geometry arrives, a camera streams its demosaiced frame
+        so the operator can aim it, and snapshots it on the interval, one
+        camera per frame-set (JAX multicam_app.py _idle_views)."""
         c = frame_id % self.n_cams
         if self.sockets[c].geometry_version:
             return
-        cfg = self.configs[c]
-        if not (cfg.stream_active or cfg.debug_stream_interval_ms > 0):
-            return
-        raise _unported("the idle views", _ROADMAP_DEBUG)
+        self._last_snapshot[c] = emit_idle_raw(
+            self.streamers[c], self.snapshots, self.configs[c], frames[c], real_start,
+            self._last_snapshot[c], self.device,
+        )
 
     def _finish_pending(self):
         """Finish the in-flight frame-set, if any; returns its wrappers."""
@@ -542,7 +572,7 @@ class MultiCamApp:
                     self._pending = (out, now, frames, stale)
                 else:
                     wrappers = self.finish_frames(out, now, frames, stale)
-            except (NotImplementedError, KernelError):
+            except (NotImplementedError, *DEVICE_ERRORS):
                 raise
             except Exception:  # keep the fleet alive on a transient failure
                 log.exception("frame set %d failed, continuing", frame_id)
@@ -553,13 +583,19 @@ class MultiCamApp:
                 # demosaic on the card or of the calibration code ends run().
                 # Calibrate what can be, and wait for the rest
                 self._calibrate_uncalibrated(frames)
-                self._idle_views(frame_id)
+                self._idle_views(frames, frame_id, real_start)
                 continue
             # a failure of the pair solve ends run() too
             if wrappers is not None and self._pair_height_active:
                 self._accumulate_height_obs(wrappers)
                 if len(self._height_obs) >= self._height_obs_target:
                     self._refine_rig_height()
+            try:
+                self._stream_and_snapshot(frames, frame_id, real_start)
+            except (NotImplementedError, *DEVICE_ERRORS):
+                raise
+            except Exception:
+                log.exception("debug stream failed, continuing")
             processing = get_real_time() - real_start
             budget = self.cameras[0].expected_frametime()
             if budget and processing > budget:
@@ -567,7 +603,7 @@ class MultiCamApp:
                          processing * 1e3, self.n_cams)
         try:
             self._finish_pending()
-        except KernelError:
+        except DEVICE_ERRORS:
             raise
         except Exception:
             log.exception("final pending frame set failed")
@@ -576,6 +612,10 @@ class MultiCamApp:
 
     def close(self):
         self._pool.shutdown(wait=False)
+        for st in self.streamers:
+            st.close()
+        if self.snapshots is not None:
+            self.snapshots.close()
         for s in self.sockets:
             s.close()
         if self.gc_socket is not None:

@@ -28,11 +28,13 @@ from ..models.detector import DetectorConfig, detect, estimate_bot_ids
 from ..models.device_finish import finish_on_device, pack_field_marks
 from ..models.perspective import Perspective
 from ..ops import blob as B
+from ..ops import frame as F
 from ..ops.blob_fused import build_kernels
 from ..ops.pipeline import BlobMachineConfig, blob_machine, extraction_kernel_shape
 from ..utils.config import VisionConfig
 from ..utils.log import get_logger
 from ..utils.state import to_numpy, to_torch
+from .debug_io import DEBUG_VIEWS
 
 log = get_logger(__name__)
 
@@ -416,3 +418,53 @@ class Processor:
             for off in self.socket.get_received_offsets():
                 frame.t_offsets.append(off)
         return wrapper, blobs, det
+
+    def debug_views(self, raw: np.ndarray, fmt: str, keys=DEBUG_VIEWS) -> dict:
+        """Render the debug views (raw demosaic, flat dRGB, gradient,
+        circularity) as (H, W, 3) uint8 RGB numpy images for streaming and
+        snapshots (reference src/main.cpp:377-403; JAX
+        app/processor.py debug_views), from the current camera model and
+        bot height, in plain PyTorch on the processor's device. Only the
+        views in ``keys`` are computed and brought to the host."""
+        cfg = self._bm_cfg
+        if cfg is None:
+            raise RuntimeError("debug_views requires a configured pipeline")
+
+        def u8(x):
+            return x.clamp(0, 255).to(torch.uint8)
+
+        def gray(x):
+            return torch.stack([u8(x)] * 3, dim=-1)
+
+        raw_t = torch.from_numpy(np.ascontiguousarray(raw)).to(self.device)
+        planes = F.raw2quad(raw_t, cfg.fmt)
+        out = {}
+        if "raw_rgb" in keys:
+            out["raw_rgb"] = u8(F.quad2rgba(planes, cfg.fmt))
+        if any(k in keys for k in ("flat_rgb", "grad_rgb", "circ_rgb")):
+            packed = torch.from_numpy(self.perspective.model.packed()).to(
+                self.device, torch.float32)
+            maxh = torch.tensor(self.max_bot_height, dtype=torch.float32,
+                                device=self.device)
+            flat = F.resample_flat(planes, packed, maxh, cfg.field_scale,
+                                   cfg.field_offset, cfg.flat_shape, cfg.fmt)
+            if "flat_rgb" in keys:
+                out["flat_rgb"] = u8(flat)
+            grad = B.gradient_dot(flat, cfg.grad_offset)
+            if "grad_rgb" in keys:
+                out["grad_rgb"] = gray(grad * 0.25 + 128.0)
+            if "circ_rgb" in keys:
+                circ = B.circularity(B.summed_area_table(grad), cfg.sat_radius)
+                out["circ_rgb"] = gray(circ + 127.0)
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def process_frame(self, frame, tracked_by_cam=None, now=None):
+        """Full synchronous frame: device step + host finishing. Returns
+        (wrapper, blobs, det), as ``finish_frame`` does."""
+        if now is None:
+            now = frame.timestamp
+        if tracked_by_cam is None:
+            tracked_by_cam = self.socket.get_tracked_objects() if self.socket else {}
+        tracked = TrackedArrays.build(tracked_by_cam, now, self.det_cfg.max_tracked)
+        out = self.device_step(frame.data, frame.fmt, tracked)
+        return self.finish_frame(out, now, frame.timestamp)

@@ -1,14 +1,17 @@
 """Camera drivers: frame sources for the pipeline (PyTorch port).
 
 Counterpart of vision_processor_tpu/io/camera.py: the driver surface
-(reference src/driver/cameradriver.h:35-47), the registry and the
+(reference src/driver/cameradriver.h:35-47), the registry, the
+``OpenCVDriver`` (file replay and OpenCV capture) and the
 ``SyntheticDriver``. Frames stay host numpy arrays; the processor uploads
-them to its device. Native, vendor and GenICam drivers are not ported yet
-(ROADMAP.md, "Port: camera drivers"); opening one raises.
+them to its device. The V4L2, vendor (Spinnaker, mvIMPACT) and GenICam
+(Aravis) drivers are not ported yet (ROADMAP.md, "Port: camera drivers");
+opening one raises.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 
@@ -46,6 +49,76 @@ class CameraDriver:
 
     def close(self) -> None:
         pass
+
+
+class OpenCVDriver(CameraDriver):
+    """File replay (video/image) and device capture via OpenCV.
+
+    File time is frame_index / fps for reproducible replays (reference
+    src/driver/opencvdriver.cpp:82-89). Frames are delivered as BGR; the
+    camera model then runs at full file resolution. An image file replays
+    as one frame.
+    """
+
+    def __init__(self, cfg: CameraSection):
+        import cv2
+
+        self._image = None
+        self._cap = None
+        self._frame_idx = 0
+        self._fps = 30.0
+        self._is_file = False
+
+        path = cfg.path
+        if path is not None and Path(path).suffix.lower() in (
+            ".png", ".jpg", ".jpeg", ".bmp",
+        ):
+            self._image = cv2.imread(str(path), cv2.IMREAD_COLOR)
+            if self._image is None:
+                raise FileNotFoundError(path)
+            self._is_file = True
+        else:
+            self._cap = cv2.VideoCapture(path if path is not None else cfg.id)
+            if not self._cap.isOpened():
+                raise RuntimeError(f"cannot open camera source {path or cfg.id}")
+            fps = self._cap.get(cv2.CAP_PROP_FPS)
+            if fps and fps > 0:
+                self._fps = fps
+            self._is_file = path is not None
+            if cfg.width:
+                self._cap.set(cv2.CAP_PROP_FRAME_WIDTH, cfg.width)
+            if cfg.height:
+                self._cap.set(cv2.CAP_PROP_FRAME_HEIGHT, cfg.height)
+
+    @property
+    def fmt(self) -> str:
+        return "BGR"
+
+    def expected_frametime(self) -> float:
+        return 1.0 / self._fps
+
+    def get_time(self) -> float:
+        if self._is_file:
+            return self._frame_idx / self._fps
+        return super().get_time()
+
+    def read_image(self) -> RawFrame | None:
+        if self._image is not None:
+            if self._frame_idx >= 1:
+                return None
+            self._frame_idx += 1
+            frame = self._image
+        else:
+            self._frame_idx += 1
+            ok, frame = self._cap.read()
+            if not ok:
+                return None
+        h, w = frame.shape[:2]
+        return RawFrame(data=frame, fmt="BGR", width=w, height=h)
+
+    def close(self) -> None:
+        if self._cap is not None:
+            self._cap.release()
 
 
 class SyntheticDriver(CameraDriver):
@@ -104,7 +177,9 @@ def open_camera(cfg: CameraSection) -> CameraDriver:
     name = (cfg.driver or "OPENCV").upper()
     if name in _DRIVERS:
         return _DRIVERS[name](cfg)
-    if name in ("OPENCV", "V4L2", "SPINNAKER", "MVIMPACT", "GENICAM", "ARAVIS"):
+    if name == "OPENCV":
+        return OpenCVDriver(cfg)
+    if name in ("V4L2", "SPINNAKER", "MVIMPACT", "GENICAM", "ARAVIS"):
         raise NotImplementedError(
             f"camera driver {name} is not ported yet "
             "(ROADMAP.md, 'Port: camera drivers')"

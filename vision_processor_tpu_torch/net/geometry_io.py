@@ -1,6 +1,7 @@
-"""Field geometry as plain Python objects: no protobuf, no YAML.
+"""Field geometry from geometry.yml: as plain Python objects, or as protos.
 
-Counterpart of vision_processor_tpu/net/geometry_io.py. ``geometry_from_dict``
+Counterpart of vision_processor_tpu/net/geometry_io.py (reference
+geometry-divB.yml, python/geom_publisher.py:39-102). ``geometry_from_dict``
 takes the same schema (the ``field`` section of geometry.yml) and generates
 the same standard markings, into plain objects that carry the attribute
 names of SSL_GeometryData, SSL_GeometryFieldSize, SSL_FieldLineSegment,
@@ -10,11 +11,17 @@ them as they take the protos, so the device path runs where the protobuf
 bindings are not installed. Float fields are rounded to float32, as the
 protos store them, so a plain geometry and a parsed one give the same flat
 grid and field marks.
+
+``load_geometry`` (a geometry.yml file) and ``geometry_wrapper_from_dict``
+(its dict) give the JAX package's SSL_WrapperPacket instead, calibrations
+included, with the same markings appended by ``generate_default_lines``;
+they import the protobuf bindings and YAML when called.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field as dc_field
+from pathlib import Path
 
 import numpy as np
 
@@ -193,3 +200,59 @@ def calibration_from_model(model, cam_id: int) -> CameraCalibration:
         pixel_image_width=int(model.size[0]),
         pixel_image_height=int(model.size[1]),
     )
+
+
+def yaml_load(path, default=None):
+    """The YAML file at ``path``; ``default()`` when it does not exist (and
+    ``default`` is given)."""
+    import yaml
+
+    path = Path(path)
+    if path.exists():
+        with path.open("r") as fh:
+            return yaml.safe_load(fh)
+    if default is not None:
+        return default()
+    raise FileNotFoundError(path)
+
+
+def generate_default_lines(wrapper, config: dict) -> None:
+    """Append the standard SSL field markings derived from the field
+    dimensions to ``wrapper.geometry.field`` (an SSL_WrapperPacket)."""
+    from ..proto import SSL_FieldShapeType
+
+    lines, arcs = default_lines(config)
+    field = wrapper.geometry.field
+    for line in lines:
+        seg = field.field_lines.add()
+        seg.name = line.name
+        seg.p1.x, seg.p1.y = line.p1.x, line.p1.y
+        seg.p2.x, seg.p2.y = line.p2.x, line.p2.y
+        seg.thickness = line.thickness
+        seg.type = SSL_FieldShapeType.Value(line.name)
+    for arc in arcs:
+        out = field.field_arcs.add()
+        out.name = arc.name
+        out.type = SSL_FieldShapeType.Value(arc.name)
+        out.center.x, out.center.y = arc.center.x, arc.center.y
+        out.radius = arc.radius
+        out.a1, out.a2 = arc.a1, arc.a2
+        out.thickness = arc.thickness
+
+
+def geometry_wrapper_from_dict(config: dict):
+    """geometry.yml's dict -> SSL_WrapperPacket: the parsed geometry
+    (field sizes, calibrations) with the generated markings."""
+    from google.protobuf.json_format import ParseDict
+
+    from ..proto import SSL_WrapperPacket
+
+    wrapper = SSL_WrapperPacket()
+    ParseDict(config, wrapper.geometry, ignore_unknown_fields=True)
+    generate_default_lines(wrapper, config)
+    return wrapper
+
+
+def load_geometry(path):
+    """Load a geometry.yml into an SSL_WrapperPacket with generated lines."""
+    return geometry_wrapper_from_dict(yaml_load(path))

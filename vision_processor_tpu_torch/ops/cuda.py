@@ -111,6 +111,12 @@ class KernelError(RuntimeError):
     its kernels."""
 
 
+# what the apps' per-frame error handling lets through instead of logging
+# it: a kernel of the port that failed, or a CUDA error that torch raised
+DEVICE_ERRORS = (KernelError,) + (
+    (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ())
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
