@@ -89,6 +89,24 @@ Phases (any failure exits non-zero and prints no result line):
    line: 5 blobs a robot and 1 a ball each frame, finite) and
    ``app/geometry_benchmark.py`` (a finite ``[Model score]``) with
    ``--device cuda`` on the same dataset;
+   then the camera drivers (``run_camera_drivers``): the ``App`` under
+   the repository's config.yml with ``driver: MVIMPACT`` (only the
+   addresses moved) reads rig camera 0 rendered as a 1080p GRBG mosaic
+   from a fake mvIMPACT SDK (``fake_mvimpact``, put in ``sys.modules``
+   for the phase only): 10 detection frames within the same bounds, the
+   frame resolved to warp, B1 twice, B2 and B3 once and B4 twice a
+   frame; then a ``NativeMulticast`` loopback round trip, and
+   ``V4L2Driver`` on /dev/video0 where it exists;
+   then the camera mesh (``run_camera_mesh``): an NCCL world of one rank
+   (``make_camera_group``, a file rendezvous under ``--out``) holding the
+   rig's 4 cameras; ``sharded_step(fused=True)`` for 10 frame-sets, the
+   gathered summaries and the colour table fed back, 16 bots within the
+   same bounds, E2/E3, B2 and B3 4 times and B4 8 times a frame-set, at
+   most 2 device->host reads per camera, every output bit-equal to slice
+   4's ``batched_step(rs_grids=None)`` on the same frames; then
+   ``sharded_rollout`` for 10 frames (4 bots a camera within 30 mm after
+   the first; its launches printed); the process group destroyed at the
+   end, and a failure to set it up fails the smoke;
 7. E1 and E5 at their own contracts (no production path runs them): the
    banded warp pass with window starts at its experiment's shapes, and the
    row top-k at rows-per-block 8, 32 and 64 on its experiment's shapes;
@@ -122,8 +140,9 @@ Phases (any failure exits non-zero and prints no result line):
    and timed in turns with it), and prints the warps a block it chose.
    B6 and E5 print their ``-Xptxas -v`` registers.
 
-Each slice, and the contract run of E1 and E5, is driven with the launch
-counts set to 0 just before it and read just after. The last line is
+Each slice, each App phase, the camera mesh and the contract run of E1
+and E5 is driven with the launch counts set to 0 just before it and read
+just after. The last line is
 ``{"ok": true, "device": {...}}``; the line before it the per-kernel JSON
 record.
 """
@@ -1723,6 +1742,349 @@ def run_replay(torch, rig, native_build) -> dict:
             "phase_s": phase_s}
 
 
+DRIVER_FRAMES = 10  # detection frames from the fake mvIMPACT camera
+DRIVER_GROUP, DRIVER_PORT = "224.99.99.67", 17671  # the App's vision and GC sockets
+DRIVER_STREAM_END = 68  # the debug stream's group: 224.99.99.68
+LOOPBACK_GROUP, LOOPBACK_PORT = "224.99.99.69", 17691  # NativeMulticast's round trip
+
+
+def fake_mvimpact(frames: list):
+    """A stand-in for the mvIMPACT Acquire SDK's Python module (the calls
+    ``io/vendor.py MVImpactDriver`` makes; no SDK is on the machine): one
+    device; each wait with a timeout completes one request holding the next
+    of ``frames`` (a Mono8 buffer carrying the mosaic, hardware time 10 ms
+    a frame), a wait without one finds nothing newer, and after the last
+    frame every wait times out. Returns (package, acquire module)."""
+    import types
+
+    acquire = types.ModuleType("mvIMPACT.acquire")
+    package = types.ModuleType("mvIMPACT")
+    package.acquire = acquire
+    queue = list(frames)
+
+    def read(value):
+        return types.SimpleNamespace(read=lambda: value)
+
+    class Request:
+        def __init__(self, data, ts_us):
+            self.data = data
+            self.imageHeight, self.imageWidth = read(data.shape[0]), read(data.shape[1])
+            self.infoTimeStamp_us = read(ts_us)
+            self.requestResult = types.SimpleNamespace(readS=lambda: "OK")
+
+        def getImageBufferDesc(self):
+            return types.SimpleNamespace(getBuffer=lambda: self.data.data)
+
+        def unlock(self):
+            pass
+
+    class FunctionInterface:
+        def __init__(self, device):
+            self.requests, self.n = {}, 0
+
+        def imageRequestSingle(self):
+            pass
+
+        def imageRequestWaitFor(self, timeout_ms):
+            if timeout_ms <= 0 or not queue:
+                return -1
+            self.n += 1
+            self.requests[self.n] = Request(queue.pop(0), 10_000 * self.n)
+            return self.n
+
+        def isRequestNrValid(self, nr):
+            return nr > 0
+
+        def getRequest(self, nr):
+            return self.requests.pop(nr)
+
+    class Prop:
+        def write(self, value):
+            pass
+
+        writeS = write
+
+    device = types.SimpleNamespace(open=lambda: None, close=lambda: None)
+    acquire.DeviceManager = lambda: types.SimpleNamespace(
+        deviceCount=lambda: 1, getDevice=lambda i: device)
+    acquire.FunctionInterface = FunctionInterface
+    acquire.SettingsBlueDevice = lambda dev: types.SimpleNamespace(
+        imageDestination=types.SimpleNamespace(pixelFormat=Prop()),
+        cameraSettings=types.SimpleNamespace(exposeUsec=Prop(), gain_dB=Prop()))
+    return package, acquire
+
+
+def run_camera_drivers(torch, rig, card: str) -> dict:
+    """The camera drivers (io/vendor.py, io/native.py). The ``App`` on the
+    card under the repository's config.yml as shipped, with ``driver:
+    MVIMPACT`` and only the addresses moved, reads rig camera 0 rendered
+    as a 1080p GRBG mosaic from a fake mvIMPACT SDK (``fake_mvimpact``,
+    installed for this phase), geometry from the GeometryBus. Fails unless
+    the App opened ``MVImpactDriver`` (format GRBG), sent DRIVER_FRAMES
+    detection frames, each after the first with the 4 robot ids within 30
+    mm and the ball within 40 mm, the frame resolved to warp, and each
+    frame launched B1 twice, B2 and B3 once and B4 twice (nothing else).
+    Then ``NativeMulticast`` sends a datagram to itself through a second
+    socket on the same group (the loopback) and times out on the next
+    receive; and ``V4L2Driver`` reads one frame from /dev/video0 where the
+    device exists."""
+    phase("camera drivers: App on a GRBG mvIMPACT camera, native multicast, V4L2")
+    import yaml
+
+    from vision_processor_tpu_torch.app.main import App
+    from vision_processor_tpu_torch.io import native as N
+    from vision_processor_tpu_torch.io.synthetic import render_raw
+    from vision_processor_tpu_torch.models.camera import CameraModel
+    from vision_processor_tpu_torch.ops import cuda as K
+    from vision_processor_tpu_torch.utils.config import CameraSection
+
+    geometry, scenes, _, (width, height) = rig
+    model = CameraModel.from_proto(next(c for c in geometry.calib if c.camera_id == 0))
+    grbg = render_raw(model, geometry.field, scenes[0], "GRBG")
+    workdir = OUT / "drivers"
+    workdir.mkdir(parents=True, exist_ok=True)
+    config = yaml.safe_load((ROOT / "config.yml").read_text())
+    config["camera"] = {**(config.get("camera") or {}), "driver": "MVIMPACT", "id": 0}
+    config["network"] = {"vision_ip": DRIVER_GROUP, "vision_port": DRIVER_PORT,
+                         "gc_ip": DRIVER_GROUP, "gc_port": DRIVER_PORT + 1}
+    config["stream"] = {**(config.get("stream") or {}), "ip_base_prefix": "224.99.99.",
+                        "ip_base_end": DRIVER_STREAM_END, "port": DRIVER_PORT + 2}
+    cfg_path = workdir / "config.yml"
+    cfg_path.write_text(yaml.dump(config))
+    bus = GeometryBus(geometry_packet(geometry, 0))
+    sdk = fake_mvimpact([grbg] * DRIVER_FRAMES)
+    saved = {name: sys.modules.get(name) for name in ("mvIMPACT", "mvIMPACT.acquire")}
+    sys.modules.update({"mvIMPACT": sdk[0], "mvIMPACT.acquire": sdk[1]})
+    cwd = os.getcwd()
+    os.chdir(workdir)  # the snapshots go under the working directory
+    try:
+        app = App(str(cfg_path), device=torch.device("cuda", 0))
+        camera = app.camera
+        if type(camera).__name__ != "MVImpactDriver" or camera.fmt != "GRBG":
+            fail(f"camera drivers: MVIMPACT opened {type(camera).__name__} ({camera.fmt})")
+        bus.attach(app.socket)
+        bus.publish()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        app.run()  # to the camera's timeout; closes the App
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+    finally:
+        os.chdir(cwd)
+        for name, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = mod
+    dets = bus.detections(0)
+    if len(dets) != DRIVER_FRAMES:
+        fail(f"camera drivers: {len(dets)} detection frames, expected {DRIVER_FRAMES}")
+    worst = ball_worst = 0.0
+    for f, wrapper in enumerate(dets[1:], start=1):
+        _, err, berr = check_detections(f"camera drivers detection frame {f}", scenes[0],
+                                        wrapper)
+        worst, ball_worst = max(worst, err), max(ball_worst, berr)
+    mode = app.processor.resample_mode
+    if mode != "warp":
+        fail(f"camera drivers: the GRBG frame resolved to {mode!r}, expected 'warp'")
+    want = {name: 0 for name in launches}
+    want.update(band_pass=2, blob_response_fused=1, row_topk=1, query_select_topk=2)
+    check_launches("camera drivers", launches, want, DRIVER_FRAMES)
+    stamps = [d.detection.t_capture_camera for d in dets]
+    print(f"camera drivers: MVImpactDriver, GRBG {grbg.shape[1]}x{grbg.shape[0]} (model "
+          f"{width}x{height}) under config.yml as shipped (stream {app.streamer.codec}), "
+          f"resolved to {mode}; {len(dets)} detection frames, max bot err {worst:.2f} mm, "
+          f"max ball err {ball_worst:.2f} mm, camera timestamps {stamps[0]:.2f}.."
+          f"{stamps[-1]:.2f} s; launches {launches}; run {wall:.3f} s ({card})")
+
+    a = N.NativeMulticast(LOOPBACK_GROUP, LOOPBACK_PORT)
+    b = N.NativeMulticast(LOOPBACK_GROUP, LOOPBACK_PORT)
+    try:
+        payload = b"\x01\x02\x03 camera drivers"
+        t0 = time.perf_counter()
+        a.send(payload)
+        got = b.recv(500)
+        rtt = time.perf_counter() - t0
+        late = b.recv(10)
+    finally:
+        a.close()
+        b.close()
+    if got != payload or late is not None:
+        fail(f"native multicast: received {got!r}, then {late!r}")
+    print(f"native multicast: {len(payload)} bytes round trip on {LOOPBACK_GROUP}:"
+          f"{LOOPBACK_PORT} in {rtt * 1e3:.3f} ms, the next receive timed out")
+
+    v4l2 = "no /dev/video0"
+    if Path("/dev/video0").exists():
+        drv = N.V4L2Driver(CameraSection(driver="V4L2", path="/dev/video0"))
+        try:
+            frame = drv.read_image()
+        finally:
+            drv.close()
+        v4l2 = ("/dev/video0: no frame within 1 s" if frame is None else
+                f"/dev/video0: one {frame.fmt} frame {frame.data.shape}")
+    print(f"V4L2: {v4l2}")
+    return {"launches": launches, "resample_mode": mode, "detections": len(dets),
+            "max_bot_err_mm": worst, "max_ball_err_mm": ball_worst, "run_s": wall,
+            "multicast_round_trip_ms": rtt * 1e3, "v4l2": v4l2}
+
+
+MESH_FRAME_SETS = 10
+
+
+def _equal_trees(label: str, got, want) -> int:
+    """Fails unless every tensor of ``got`` equals ``want``'s bit for bit
+    (NaN where NaN); returns the number of tensors compared."""
+    import numpy as np
+
+    from vision_processor_tpu_torch.utils.state import to_numpy
+
+    got, want = to_numpy(got), to_numpy(want)
+    n = 0
+    for part, (g, w) in enumerate(zip(got, want)):
+        if sorted(g) != sorted(w):
+            fail(f"{label}: output {part} has keys {sorted(g)}, expected {sorted(w)}")
+        for k in w:
+            same = g[k].shape == w[k].shape and np.array_equal(
+                g[k], w[k], equal_nan=g[k].dtype.kind == "f")
+            if not same:
+                fail(f"{label}: {k} of output {part} differs")
+            n += 1
+    return n
+
+
+def run_camera_mesh(torch, recorder, rig, card: str) -> dict:
+    """The camera mesh over torch.distributed (parallel/multicam.py): an
+    NCCL world of one rank on the card (a file rendezvous under OUT), the
+    4-camera rig as the rank's n_local = 4 cameras. ``sharded_step(fused=
+    True)`` runs MESH_FRAME_SETS frame-sets, the all-gathered summaries and
+    the colour table fed back, the wrappers from the fleet's host
+    finishing: 16 bots within 30 mm and each ball within 40 mm on every
+    frame-set after the first; per frame-set E2/E3 4, B2 and B3 4, B4 8,
+    nothing else; at most 2 device->host reads per camera in the step. The
+    same frame-sets through slice 4's ``batched_step(rs_grids=None)``, its
+    own summaries fed back, must give every output bit for bit (the
+    summaries as the gathered ones). Then ``sharded_rollout`` for
+    MESH_FRAME_SETS frames (the gather grids, built once): 4 bots a camera
+    within 30 mm after the first frame; its launches are printed. The
+    process group is destroyed at the end; a failure to set it up fails
+    the phase."""
+    phase("camera mesh: NCCL world of 1, sharded_step and sharded_rollout")
+    import numpy as np
+    import torch.distributed as dist
+
+    from vision_processor_tpu_torch.app.processor import TrackedArrays
+    from vision_processor_tpu_torch.io.camera import RawFrame
+    from vision_processor_tpu_torch.ops import cuda as K
+    from vision_processor_tpu_torch.parallel import multicam as M
+    from vision_processor_tpu_torch.utils.state import to_torch
+
+    _, scenes, raws, (width, height) = rig
+    OUT.mkdir(parents=True, exist_ok=True)
+    rdzv = OUT / "mesh-rdzv"
+    rdzv.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    try:
+        group = M.make_camera_group(device=torch.device("cuda", 0),
+                                    init_method=f"file://{rdzv}", rank=0, world_size=1)
+    except Exception as exc:  # any failure of the group's set-up ends the smoke
+        fail(f"camera mesh: the NCCL process group did not initialise: {exc!r}")
+    init_s = time.perf_counter() - t0
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"camera mesh: backend {dist.get_backend()}, expected nccl")
+        app = _offline_fleet(torch, rig, "gather", 1.25)
+        dev = app.device
+        frames = [RawFrame(data=r, fmt="RGGB", width=width, height=height) for r in raws]
+        if not app._ensure_step("RGGB", raws[0].shape):
+            fail("camera mesh: the fleet is not calibrated")
+        state, _ = app._device_inputs(
+            TrackedArrays.build({}, 0.0, app.processors[0].det_cfg.max_tracked))
+        fleet = app._fleet_params()
+        fleet["tracked_time_delta"] = np.float32(0.01)
+        params = to_torch(fleet, dev)
+        marks = {k: v[0] for k, v in app._marks.items()}  # one field, replicated
+        cfg = app.mc_cfg
+        n_local = cfg.n_cams // group.world
+        print(f"process group: {dist.get_backend()}, rank {group.rank} of {group.world} "
+              f"on {group.device}, set up in {init_s:.3f} s; n_local {n_local}, flat grid "
+              f"{cfg.bm.flat_shape}, in line")
+        step = M.sharded_step(cfg, group, fused=True)
+        raws_t = torch.from_numpy(np.stack(raws)).to(dev)
+
+        def run(colors, prev):
+            return step(raws_t, state["packed"], state["scales"], state["offsets"], colors,
+                        prev, params, state["refs"], marks)
+
+        outs = []
+
+        def finish(out, now):
+            blobs, det, gathered, fin = out
+            outs.append(out)
+            carry["in"] = (fin["colors7"], gathered)
+            return app.finish_frames((blobs, det, fin), now, frames)
+
+        empty = M.empty_summary(cfg, dev)
+        carry = {"in": (state["colors"], empty)}
+        finish(run(*carry["in"]), 0.0)  # warm-up (first-use allocations, the communicator)
+        outs.clear()
+        carry["in"] = (state["colors"], empty)
+        res = drive(torch, recorder, "camera mesh", scenes, MESH_FRAME_SETS,
+                    SLICE4_LAUNCHES, lambda now: run(*carry["in"]), finish, "sharded_step",
+                    "frame-set")
+
+        bstep = M.batched_step(cfg)
+        prev, colors, n_equal = empty, state["colors"], 0
+        for f, out in enumerate(outs):
+            want = bstep(raws_t, state["packed"], state["scales"], state["offsets"], colors,
+                         prev, params, None, None, state["refs"], app._marks)
+            gathered = {k: v.reshape(want[2][k].shape) for k, v in out[2].items()}
+            n_equal += _equal_trees(f"camera mesh frame-set {f} against batched_step",
+                                    (out[0], out[1], gathered, out[3]), want)
+            prev, colors = want[2], want[3]["colors7"]
+        print(f"sharded_step == batched_step(rs_grids=None): {n_equal} tensors over "
+              f"{len(outs)} frame-sets, bit for bit")
+
+        roll = M.sharded_rollout(cfg, group, MESH_FRAME_SETS)
+        bank = raws_t.unsqueeze(0).expand(MESH_FRAME_SETS, *raws_t.shape)
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rolled = roll(bank, state["packed"], state["scales"], state["offsets"],
+                      state["colors"], params)
+        torch.cuda.synchronize()
+        roll_s = time.perf_counter() - t0
+        roll_launches = dict(K.LAUNCHES)
+        valid = rolled["bot_valid"].cpu().numpy()
+        pos = rolled["bot_pos"].cpu().numpy()
+        worst_roll = 0.0
+        for f in range(1, MESH_FRAME_SETS):
+            for c, scene in enumerate(scenes):
+                got = pos[f, c][valid[f, c]]
+                if len(got) != len(scene.bots):
+                    fail(f"camera mesh rollout frame {f} camera {c}: {len(got)} bots, "
+                         f"expected {len(scene.bots)}")
+                for bot in scene.bots:
+                    err = float(np.hypot(*(got - [bot.x, bot.y]).T).min())
+                    if err > 30.0:
+                        fail(f"camera mesh rollout frame {f} camera {c}: bot error "
+                             f"{err:.2f} mm")
+                    worst_roll = max(worst_roll, err)
+        ids = rolled["summary_id"].cpu().numpy()
+        print(f"sharded_rollout: {MESH_FRAME_SETS} frames in {roll_s:.3f} s (wall, "
+              f"{roll_s / MESH_FRAME_SETS * 1e3:.3f} ms a frame-set; {card}); 4 bots a "
+              f"camera after the first frame, max err {worst_roll:.2f} mm; summary ids of "
+              f"the last frame {[sorted(set(r[r >= 0].tolist())) for r in ids[-1]]}; "
+              f"launches {roll_launches}")
+        print(f"camera mesh: median device span {res['median_device_ms']:.3f} ms a "
+              f"frame-set, {1e3 / res['median_frame_ms']:.1f} frame-sets/s ({card})")
+    finally:
+        dist.destroy_process_group()
+    res.update(init_s=init_s, tensors_equal=n_equal, rollout_s=roll_s,
+               rollout_launches=roll_launches, rollout_max_bot_err_mm=worst_roll)
+    return res
+
+
 def _e1_inputs(torch):
     """E1's experiment (pallas_band_warp.py main()): src (4, 720, 896) u8
     values, pos (4, 432, 896) a bent ramp with per-channel quarter-pixel
@@ -2989,13 +3351,17 @@ def main() -> None:
     calib = run_calibration(torch, rig)
     pair = run_pair_height(torch)
     replay = run_replay(torch, rig, native_build)
+    drivers = run_camera_drivers(torch, rig, card)
+    mesh = run_camera_mesh(torch, recorder, rig, card)
     contracts = run_contracts(torch)
     for label, s, unit in (("slice 1 (warp, score-first)", s1, "frame"),
                            ("slice 2 (gather, circ-first, fused combo)", s2, "frame"),
                            ("slice 3 (4 cameras, gather)", s3, "frame-set"),
                            ("slice 3 (4 cameras, warp)", s3w, "frame-set"),
                            ("slice 4 (4 cameras, in line)", s4, "frame-set"),
-                           ("slice 4 (4 cameras, in line, factor 1.0)", s4f1, "frame-set")):
+                           ("slice 4 (4 cameras, in line, factor 1.0)", s4f1, "frame-set"),
+                           ("camera mesh (NCCL world of 1, 4 cameras, in line)", mesh,
+                            "frame-set")):
         print(f"{label}: median device span {s['median_device_ms']:.3f} ms per {unit}, "
               f"{unit}-serial {1e3 / s['median_frame_ms']:.1f} {unit}s/s")
     if args.profile:
@@ -3050,11 +3416,13 @@ def main() -> None:
                    for label, s in (("slice 1", s1), ("slice 2", s2), ("slice 3", s3),
                                     ("slice 3, warp", s3w), ("slice 4", s4),
                                     ("slice 4, factor 1.0", s4f1),
+                                    ("camera mesh", mesh),
                                     ("E1 and E5 contracts", contracts))},
         "idle path": idle,
         "calibration path": calib,
         "pair height": pair,
         "debug stream and replay": replay,
+        "camera drivers": drivers,
     }, indent=1))
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))

@@ -4,8 +4,7 @@ pattern of tests/test_app_integration.py), the idle path before geometry
 under the default config, the calibration path of a camera with geometry
 and no calibration, the debug stream (RTP packets that depacketize into
 H.264 access units) and the debug images, the shipped configs, and the
-NotImplementedError guards of the camera drivers the port does not carry
-yet.
+dispatch of every camera driver name.
 """
 import threading
 import time
@@ -390,15 +389,27 @@ def test_geometry_builds_the_blob_kernel_ahead(divb_field, overhead_model, monke
 
 
 def test_open_camera_refuses_unported_drivers(tmp_path):
-    """The V4L2, vendor and GenICam drivers raise naming their ROADMAP item;
-    OPENCV (the default) is the file replay now: a missing image raises
-    FileNotFoundError."""
+    """Each of the five hardware driver names dispatches to its driver,
+    which raises as the JAX package's does where its device, SDK or library
+    is missing: V4L2 on a path that is no device (RuntimeError, from the
+    port's V4L2Driver), SPINNAKER and MVIMPACT without their SDKs, GENICAM
+    and ARAVIS without libaravis (RuntimeError naming what is missing, the
+    JAX message). OPENCV (the default) is the file replay: a missing image
+    raises FileNotFoundError."""
+    from vision_processor_tpu.io.camera import open_camera as jax_open_camera
     from vision_processor_tpu.utils.config import CameraSection
     from vision_processor_tpu_torch.io.camera import OpenCVDriver, open_camera
+    from vision_processor_tpu_torch.utils.config import CameraSection as PortSection
 
     for name in ("V4L2", "SPINNAKER", "MVIMPACT", "GENICAM", "ARAVIS"):
-        with pytest.raises(NotImplementedError, match="Port: camera drivers"):
-            open_camera(CameraSection(driver=name))
+        path = str(tmp_path / "no-video") if name == "V4L2" else None
+        with pytest.raises(RuntimeError) as want:
+            jax_open_camera(CameraSection(driver=name, path=path))
+        with pytest.raises(RuntimeError) as got:
+            open_camera(PortSection(driver=name, path=path))
+        assert str(got.value) == str(want.value)
+        assert got.traceback[-1].path.parent.name == "io"
+        assert "vision_processor_tpu_torch" in str(got.traceback[-1].path)
     with pytest.raises(FileNotFoundError):
         open_camera(CameraSection(driver="OPENCV", path=str(tmp_path / "none.png")))
     import cv2

@@ -4,9 +4,10 @@ Counterpart of vision_processor_tpu/io/camera.py: the driver surface
 (reference src/driver/cameradriver.h:35-47), the registry, the
 ``OpenCVDriver`` (file replay and OpenCV capture) and the
 ``SyntheticDriver``. Frames stay host numpy arrays; the processor uploads
-them to its device. The V4L2, vendor (Spinnaker, mvIMPACT) and GenICam
-(Aravis) drivers are not ported yet (ROADMAP.md, "Port: camera drivers");
-opening one raises.
+them to its device. ``open_camera`` imports the V4L2 (io/native.py),
+vendor (io/vendor.py: Spinnaker, mvIMPACT) and GenICam (io/genicam.py:
+Aravis) drivers on first use; each raises RuntimeError without its
+library or SDK.
 """
 from __future__ import annotations
 
@@ -179,9 +180,16 @@ def open_camera(cfg: CameraSection) -> CameraDriver:
         return _DRIVERS[name](cfg)
     if name == "OPENCV":
         return OpenCVDriver(cfg)
-    if name in ("V4L2", "SPINNAKER", "MVIMPACT", "GENICAM", "ARAVIS"):
-        raise NotImplementedError(
-            f"camera driver {name} is not ported yet "
-            "(ROADMAP.md, 'Port: camera drivers')"
-        )
+    if name == "V4L2":
+        from . import native  # registers the driver
+
+        return _DRIVERS["V4L2"](cfg)
+    if name in ("SPINNAKER", "MVIMPACT"):
+        from . import vendor  # registers both; raises without the SDK
+
+        return _DRIVERS[name](cfg)
+    if name in ("GENICAM", "ARAVIS"):
+        from . import genicam  # registers both; raises without libaravis
+
+        return _DRIVERS[name](cfg)
     raise ValueError(f"unknown camera driver {cfg.driver}")

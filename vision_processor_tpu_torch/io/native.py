@@ -1,16 +1,14 @@
-"""The native host library's H.264 encoder, bound with ctypes (PyTorch port).
+"""ctypes bindings for the native host library (PyTorch port).
 
-Counterpart of the encoder half of vision_processor_tpu/io/native.py. The
-library is the repository's ``native/vptpu_native.cpp`` and
+Counterpart of vision_processor_tpu/io/native.py: the V4L2 camera driver
+(registered as driver "V4L2"), a native multicast socket and the H.264
+encoder. The library is the repository's ``native/vptpu_native.cpp`` and
 ``native/h264_cavlc.cpp``, compiled with ``native/Makefile``'s flags on
 first use into ``build/vptpu_native/<hash of the sources>/`` (a directory
 that ``.gitignore`` lists; ``native/`` itself is never written). Without a
-C++ compiler ``load_native`` returns None and ``RTPStreamer`` falls back to
-its other codecs, as in the JAX package.
-
-The V4L2 camera driver and the native multicast socket of the same library
-(JAX io/native.py ``V4L2Driver``, ``NativeMulticast``) are not bound here:
-they come with the camera drivers (ROADMAP.md, "Port: camera drivers").
+C++ compiler ``load_native`` returns None: ``RTPStreamer`` falls back to
+its other codecs, and ``V4L2Driver`` and ``NativeMulticast`` raise
+RuntimeError, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -25,6 +23,7 @@ from pathlib import Path
 import numpy as np
 
 from ..utils.log import get_logger
+from .camera import CameraDriver, RawFrame, register_driver
 
 log = get_logger(__name__)
 
@@ -87,6 +86,35 @@ def load_native(build: bool = True):
 
 
 def _bind(lib):
+    lib.vptpu_v4l2_open.restype = ctypes.c_void_p
+    lib.vptpu_v4l2_open.argtypes = [
+        ctypes.c_char_p, ctypes.c_uint32, ctypes.c_uint32,
+        ctypes.c_uint32, ctypes.c_uint32,
+    ]
+    for fn in ("width", "height", "pixelformat", "bytesperline"):
+        getattr(lib, f"vptpu_v4l2_{fn}").restype = ctypes.c_uint32
+        getattr(lib, f"vptpu_v4l2_{fn}").argtypes = [ctypes.c_void_p]
+    lib.vptpu_v4l2_read.restype = ctypes.c_int64
+    lib.vptpu_v4l2_read.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.vptpu_v4l2_close.argtypes = [ctypes.c_void_p]
+
+    lib.vptpu_mc_open.restype = ctypes.c_void_p
+    lib.vptpu_mc_open.argtypes = [ctypes.c_char_p, ctypes.c_uint16]
+    lib.vptpu_mc_send.restype = ctypes.c_int64
+    lib.vptpu_mc_send.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64
+    ]
+    lib.vptpu_mc_recv.restype = ctypes.c_int64
+    lib.vptpu_mc_recv.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+        ctypes.c_int,
+    ]
+    lib.vptpu_mc_close.argtypes = [ctypes.c_void_p]
+    lib.vptpu_monotonic_us.restype = ctypes.c_int64
+
     lib.vptpu_h264_ipcm_encode.restype = ctypes.c_long
     lib.vptpu_h264_ipcm_encode.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -273,3 +301,120 @@ class H264Encoder:
         u = i420[hp:hp + hp // 4].reshape(hp // 2, wp // 2)
         v = i420[hp + hp // 4:].reshape(hp // 2, wp // 2)
         return self.encode_i420(y, u, v)
+
+
+def fourcc(code: str) -> int:
+    a, b, c, d = (ord(ch) for ch in code)
+    return a | (b << 8) | (c << 16) | (d << 24)
+
+
+_FOURCC_TO_FMT = {
+    fourcc("RGGB"): ("RGGB", 1),
+    fourcc("GRBG"): ("GRBG", 1),
+    fourcc("YUYV"): ("YUYV", 2),
+    fourcc("MJPG"): ("MJPG", 0),
+    fourcc("BGR3"): ("BGR", 3),
+}
+
+
+class V4L2Driver(CameraDriver):
+    """Native mmap-ring V4L2 capture with newest-frame-only delivery."""
+
+    def __init__(self, cfg):
+        lib = load_native()
+        if lib is None:
+            raise RuntimeError("native library unavailable for V4L2 driver")
+        self._lib = lib
+        device = cfg.path or f"/dev/video{cfg.id}"
+        self._cam = lib.vptpu_v4l2_open(
+            device.encode(), cfg.width or 0, cfg.height or 0, 0, 4
+        )
+        if not self._cam:
+            raise RuntimeError(f"cannot open V4L2 device {device}")
+        self._width = lib.vptpu_v4l2_width(self._cam)
+        self._height = lib.vptpu_v4l2_height(self._cam)
+        pix = lib.vptpu_v4l2_pixelformat(self._cam)
+        self._fmt, bpp = _FOURCC_TO_FMT.get(pix, ("YUYV", 2))
+        cap = self._width * self._height * max(bpp, 3)
+        self._buf = np.empty(cap, dtype=np.uint8)
+        self._fps = 30.0
+
+    @property
+    def fmt(self) -> str:
+        # the pipeline receives BGR after host conversion for packed formats
+        return "BGR" if self._fmt in ("YUYV", "MJPG", "BGR") else self._fmt
+
+    def expected_frametime(self) -> float:
+        return 1.0 / self._fps
+
+    def read_image(self) -> RawFrame | None:
+        ts = ctypes.c_int64(0)
+        n = self._lib.vptpu_v4l2_read(
+            self._cam,
+            self._buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            self._buf.size,
+            1000,
+            ctypes.byref(ts),
+        )
+        if n <= 0:
+            return None
+        data = self._buf[: int(n)]
+        w, h = self._width, self._height
+        if self._fmt == "YUYV":
+            import cv2
+
+            yuyv = data.reshape(h, w, 2)
+            bgr = cv2.cvtColor(yuyv, cv2.COLOR_YUV2BGR_YUY2)
+            return RawFrame(bgr, "BGR", w, h, ts.value / 1e6)
+        if self._fmt == "MJPG":
+            import cv2
+
+            bgr = cv2.imdecode(data, cv2.IMREAD_COLOR)
+            if bgr is None:
+                return None
+            return RawFrame(bgr, "BGR", w, h, ts.value / 1e6)
+        if self._fmt == "BGR":
+            return RawFrame(data.reshape(h, w, 3).copy(), "BGR", w, h, ts.value / 1e6)
+        # raw bayer: model resolution is half-res
+        return RawFrame(data.reshape(h, w).copy(), self._fmt, w // 2, h // 2,
+                        ts.value / 1e6)
+
+    def close(self) -> None:
+        if self._cam:
+            self._lib.vptpu_v4l2_close(self._cam)
+            self._cam = None
+
+
+class NativeMulticast:
+    """Native multicast socket (send + timeout recv)."""
+
+    def __init__(self, group: str, port: int):
+        lib = load_native()
+        if lib is None:
+            raise RuntimeError("native library unavailable")
+        self._lib = lib
+        self._sock = lib.vptpu_mc_open(group.encode(), port)
+        if not self._sock:
+            raise RuntimeError(f"cannot open multicast {group}:{port}")
+        self._buf = np.empty(65536, dtype=np.uint8)
+
+    def send(self, data: bytes) -> int:
+        arr = np.frombuffer(data, dtype=np.uint8)
+        return int(self._lib.vptpu_mc_send(
+            self._sock, arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), arr.size))
+
+    def recv(self, timeout_ms: int = 100) -> bytes | None:
+        n = self._lib.vptpu_mc_recv(
+            self._sock, self._buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            self._buf.size, timeout_ms)
+        if n <= 0:
+            return None
+        return bytes(self._buf[: int(n)])
+
+    def close(self) -> None:
+        if self._sock:
+            self._lib.vptpu_mc_close(self._sock)
+            self._sock = None
+
+
+register_driver("V4L2", V4L2Driver)

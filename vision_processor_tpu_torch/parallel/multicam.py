@@ -1,4 +1,5 @@
-"""N cameras on one card (PyTorch port of parallel/multicam.py, one-chip part).
+"""Multi-camera scale-out: N cameras on one card, and a camera mesh of
+cards over ``torch.distributed`` (PyTorch port of parallel/multicam.py).
 
 Counterpart of vision_processor_tpu/parallel/multicam.py. The reference
 runs one process per camera, coordinated by UDP multicast (reference
@@ -17,17 +18,25 @@ and, with field markings, the on-device finisher.
 resamples each camera in line: the camera projection per flat pixel, then
 the packed sampler (kernel E2/E3), as the JAX package does without grids.
 
-The mesh part (``make_camera_mesh``, ``sharded_step``, ``sharded_rollout``:
-``shard_map`` with an ``all_gather`` of the detection summaries) is a later
-slice over ``torch.distributed`` on 4 cards (ROADMAP.md, A4); its
-per-device program is this in-line path.
+The mesh part is the JAX package's ``shard_map`` over a camera mesh as one
+process per rank (``torchrun``, or any launcher that sets the rank and the
+world size): ``make_camera_group`` joins the process group (NCCL on the
+rank's card; gloo only for CPU tensors), and ``sharded_step`` /
+``sharded_rollout`` run the rank's ``n_cams // world`` cameras in line
+(``rs_grids=None``, or the rollout's own grids) and all-gather the
+detection summaries after every frame-set, the collective that replaces
+the multicast bus. Every rank holds only its own cameras' inputs; the
+params are replicated, and per-camera tunables are sliced by global camera
+id. The exchange never goes through the host.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.detector import (
     TWO_PI, DetectorConfig, detect, estimate_bot_ids, finalize_detections_batched,
@@ -63,6 +72,15 @@ def params_for_cam(params: dict, c: int) -> dict:
         k: v[c] if k in _PER_CAMERA_PARAM_KEYS and getattr(v, "ndim", 0) >= 1 else v
         for k, v in params.items()
     }
+
+
+def _shard_param(v, cam0: int, n_local: int):
+    """This rank's (n_local,) window of a possibly per-camera tunable: the
+    replicated params carry global (n_cams,) tensors, and the rank's
+    cameras start at global id ``cam0``. Scalars pass through."""
+    if getattr(v, "ndim", 0) >= 1:
+        return v[cam0:cam0 + n_local]
+    return v
 
 
 def _cam(tree: dict, c: int) -> dict:
@@ -226,14 +244,16 @@ def make_resample_grids(cfg: MultiCamConfig, packed_cams, max_bot_height, field_
 
 
 def _cores(cfg, raws, packed_cams, field_scales, field_offsets, colors7, tracked,
-           params, rs_grids):
-    """The per-camera cores, stacked: (blobs, det) with a camera axis."""
+           params, rs_grids, cam0: int = 0):
+    """The per-camera cores, stacked: (blobs, det) with a camera axis. The
+    inputs hold cameras ``cam0``, ``cam0 + 1``, ... (a rank's share of a
+    camera mesh); per-camera tunables are indexed by global camera id."""
     outs = [
         _single_cam_step(cfg, raws[c], packed_cams[c], field_scales[c], field_offsets[c],
-                         colors7[c], tracked, params_for_cam(params, c),
+                         colors7[c], tracked, params_for_cam(params, cam0 + c),
                          rs_grid=None if rs_grids is None else _cam(rs_grids, c),
                          finalize=False)
-        for c in range(cfg.n_cams)
+        for c in range(len(raws))
     ]
     return _stack([o[0] for o in outs]), _stack([o[1] for o in outs])
 
@@ -321,14 +341,18 @@ def staggered_tail_step(cfg: MultiCamConfig):
     return tail
 
 
-def empty_summary(cfg: MultiCamConfig, device="cuda") -> dict:
-    b, n = cfg.det.max_bots, cfg.n_cams
+def _empty_summary_local(cfg: MultiCamConfig, n_local: int = 1, device="cuda") -> dict:
+    b = cfg.det.max_bots
     return {
-        "pos": torch.zeros((n, b, 2), dtype=torch.float32, device=device),
-        "orientation": torch.zeros((n, b), dtype=torch.float32, device=device),
-        "score": torch.zeros((n, b), dtype=torch.float32, device=device),
-        "id": torch.full((n, b), -1, dtype=torch.int32, device=device),
+        "pos": torch.zeros((n_local, b, 2), dtype=torch.float32, device=device),
+        "orientation": torch.zeros((n_local, b), dtype=torch.float32, device=device),
+        "score": torch.zeros((n_local, b), dtype=torch.float32, device=device),
+        "id": torch.full((n_local, b), -1, dtype=torch.int32, device=device),
     }
+
+
+def empty_summary(cfg: MultiCamConfig, device="cuda") -> dict:
+    return _empty_summary_local(cfg, cfg.n_cams, device)
 
 
 def make_rollout(cfg: MultiCamConfig, step_fn, n_frames: int):
@@ -370,5 +394,165 @@ def make_rollout(cfg: MultiCamConfig, step_fn, n_frames: int):
                              "bot_pos": det["bot_pos"], "n_balls": n_balls})
             summary, prev = nxt, summary
         return (n_frames, summary, prev, colors), _stack(compacts)
+
+    return rollout
+
+
+# ---------------------------------------------------------------------------
+# a mesh of cards: one process per rank over torch.distributed
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class CameraGroup:
+    """One rank's view of the camera mesh: the process group, this rank,
+    the world size and the device the rank's cameras run on."""
+
+    group: object
+    rank: int
+    world: int
+    device: torch.device
+
+
+def make_camera_group(device=None, backend=None, init_method=None, rank: int = -1,
+                      world_size: int = -1) -> CameraGroup:
+    """The camera mesh as this process sees it (the JAX package's
+    ``make_camera_mesh``).
+
+    ``device`` defaults to ``cuda:LOCAL_RANK``: one card per rank, NCCL
+    between them. ``device="cpu"`` takes gloo; no other pairing is accepted,
+    so a rank that asked for a card never falls back to the host. The
+    default process group is used when one is initialised; otherwise one is
+    initialised from ``init_method``, ``rank`` and ``world_size`` as
+    ``init_process_group`` takes them (default ``env://``: ``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``, as ``torchrun``
+    sets them)."""
+    if device is None:
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+    device = torch.device(device)
+    want = "nccl" if device.type == "cuda" else "gloo"
+    backend = want if backend is None else backend
+    if backend != want:
+        raise ValueError(f"the camera mesh runs {want} on a {device.type} device, "
+                         f"not {backend}")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"make_camera_group: {device} asked for and CUDA is "
+                               "not available")
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        # a card's communicator is set up here, not at the first gather
+        eager = {"device_id": device} if device.type == "cuda" else {}
+        dist.init_process_group(backend, init_method=init_method or "env://",
+                                rank=rank, world_size=world_size, **eager)
+    elif dist.get_backend() != backend:
+        raise ValueError(f"the default process group runs {dist.get_backend()}, "
+                         f"and a {device.type} device needs {backend}")
+    return CameraGroup(group=dist.group.WORLD, rank=dist.get_rank(),
+                       world=dist.get_world_size(), device=device)
+
+
+def _local_cameras(cfg: MultiCamConfig, group: CameraGroup) -> int:
+    if cfg.n_cams % group.world:
+        raise ValueError(f"n_cams={cfg.n_cams} must divide over {group.world} ranks")
+    return cfg.n_cams // group.world
+
+
+def _all_gather(group: CameraGroup, summary: dict) -> dict:
+    """Every rank's summaries, field by field, in the JAX layout (world,
+    n_local, max_bots, ...): gathered as the concatenation along the first
+    axis (the one output layout gloo takes) and viewed as a stack."""
+    out = {}
+    for k, x in summary.items():
+        x = x.contiguous()
+        buf = torch.empty((group.world * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.all_gather_into_tensor(buf, x, group=group.group)
+        out[k] = buf.view(group.world, *x.shape)
+    return out
+
+
+def sharded_step(cfg: MultiCamConfig, group: CameraGroup, fused: bool = False):
+    """A function running this rank's ``n_cams / world`` cameras for one
+    frame-set, their summaries all-gathered over the group.
+
+    Inputs carry this rank's cameras on a leading local axis (global ids
+    ``rank * n_local`` on); ``prev_gathered`` is the previous frame-set's
+    gathered summary, (world, n_local, max_bots, ...), the same on every
+    rank; ``params`` is replicated. Each camera is resampled in line. With
+    ``fused=True`` the call takes ``colors7_refs`` (this rank's cameras) and
+    ``marks`` (the field's, broadcast to the local cameras) and runs the
+    on-device finisher. Returns (blobs, det, gathered), plus ``fin``."""
+    n_local = _local_cameras(cfg, group)
+    cam0 = group.rank * n_local
+
+    def step(raws, packed_cams, field_scales, field_offsets, colors7, prev_gathered,
+             params, colors7_refs=None, marks=None):
+        if fused and marks is None:
+            raise ValueError("sharded_step(fused=True) needs colors7_refs and marks")
+        tracked = tracked_from_summaries(cfg.det, prev_gathered,
+                                         params["tracked_time_delta"],
+                                         bot_heights=params.get("bot_heights_yb"))
+        blobs, det = _cores(cfg, raws, packed_cams, field_scales, field_offsets, colors7,
+                            tracked, params, None, cam0)
+        det, summary = finalize_batched(
+            blobs, det, colors7, _shard_param(params["clipping_tolerance"], cam0, n_local),
+            params["ball_radius"])
+        gathered = _all_gather(group, summary)
+        if not fused:
+            return blobs, det, gathered
+        fparams = {k: _shard_param(v, cam0, n_local) if k in _PER_CAMERA_PARAM_KEYS else v
+                   for k, v in params.items()}
+        marks_l = {k: torch.broadcast_to(v, (n_local, *v.shape)) for k, v in marks.items()}
+        fin = finish_on_device_batched(blobs, det, colors7, colors7_refs, packed_cams,
+                                       marks_l, stack_finish_params(fparams, n_local))
+        return blobs, det, gathered, fin
+
+    return step
+
+
+def sharded_rollout(cfg: MultiCamConfig, group: CameraGroup, n_frames: int):
+    """An ``n_frames`` loop over the camera mesh (the JAX package's
+    ``lax.scan`` as a Python loop): this rank's cameras take their frames
+    from ``bank`` (n_frames, n_local, ...), and after every frame the
+    summaries are all-gathered, so that the next frame's tracked search
+    sees the whole fleet (with velocities from the frame before). The
+    sampling grids (warp or gather, by ``cfg.bm.resample_mode``) are built
+    once per rollout. Returns a dict of per-frame tensors: ``bot_tracked_id``,
+    ``bot_valid``, ``bot_pos`` (n_frames, n_local, ...) and ``summary_id``,
+    ``summary_pos`` (n_frames, n_cams, ...)."""
+    n_local = _local_cameras(cfg, group)
+    cam0 = group.rank * n_local
+
+    def rollout(bank, packed_cams, field_scales, field_offsets, colors7, params):
+        grids = _stack([
+            cfg.bm.make_resample_grid(packed_cams[i], params["max_bot_height"],
+                                      field_scales[i], field_offsets[i])
+            for i in range(n_local)
+        ])
+        clip = _shard_param(params["clipping_tolerance"], cam0, n_local)
+        gathered = prev = _all_gather(group, _empty_summary_local(cfg, n_local,
+                                                                  bank.device))
+        outs = []
+        for f in range(n_frames):
+            tracked = tracked_from_summaries(
+                cfg.det, gathered, params["tracked_time_delta"], prev_summaries=prev,
+                bot_heights=params.get("bot_heights_yb"))
+            blobs, det = _cores(cfg, bank[f], packed_cams, field_scales, field_offsets,
+                                colors7, tracked, params, grids, cam0)
+            det, summary = finalize_batched(blobs, det, colors7, clip,
+                                            params["ball_radius"])
+            nxt = _all_gather(group, summary)
+            outs.append({
+                "bot_tracked_id": det["bot_tracked_id"],
+                "bot_valid": det["bot_valid"],
+                "bot_pos": det["bot_pos"],
+                # (world, n_local, ...) -> (n_cams, ...): the observable
+                # summary does not depend on the mesh's layout
+                "summary_id": nxt["id"].reshape(cfg.n_cams, -1),
+                "summary_pos": nxt["pos"].reshape(cfg.n_cams, -1, 2),
+            })
+            gathered, prev = nxt, gathered
+        return _stack(outs)
 
     return rollout
