@@ -107,6 +107,22 @@ Phases (any failure exits non-zero and prints no result line):
    ``sharded_rollout`` for 10 frames (4 bots a camera within 30 mm after
    the first; its launches printed); the process group destroyed at the
    end, and a failure to set it up fails the smoke;
+   then one port process per camera (``run_processes``): one slice-1
+   ``device_step`` under ``utils/timing.py`` ``StageTimer.measure`` and
+   ``trace`` (the Chrome trace must name B2's kernel), then rig cameras 0
+   and 1 replayed from MJPG AVIs, each by the vision_processor launcher
+   (vision_processor_tpu_torch/scripts/) in a child process with no
+   ``--device``, under config.yml as shipped with the dataset harness's
+   camera id and ``wait_for_geometry``; the geometry with both
+   calibrations published on the wire once both wait for it. Both must
+   exit 0 within PROC_LIMIT_S, hold the card's device file open while
+   they run (nvidia-smi lists two more compute processes), send 14
+   detection frames each within the same bounds after the first, receive
+   each other's detections (t_offsets) and launch B2, B3 once, B4 twice
+   and B1 twice (or E4 and B7 once) a frame, counted in each child; then
+   the blob-benchmark launcher as a process on the replay phase's AVI
+   must print the replay phase's ``[BlobMachine]`` line but for the
+   processing time;
 7. E1 and E5 at their own contracts (no production path runs them): the
    banded warp pass with window starts at its experiment's shapes, and the
    row top-k at rows-per-block 8, 32 and 64 on its experiment's shapes;
@@ -142,7 +158,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 Each slice, each App phase, the camera mesh and the contract run of E1
 and E5 is driven with the launch counts set to 0 just before it and read
-just after. The last line is
+just after; each child process of the processes phase starts at 0 and
+writes its counts when it exits. The last line is
 ``{"ok": true, "device": {...}}``; the line before it the per-kernel JSON
 record.
 """
@@ -1389,18 +1406,20 @@ REPLAY_STREAM_END = 66  # the debug stream's group: 224.99.99.(66 + cam_id)
 
 class Datagrams:
     """Every datagram sent to ``group:port`` (a receive buffer of 8 MB,
-    for the stream's bursts of RTP packets)."""
+    for the stream's bursts of RTP packets), with its arrival time
+    (``time.perf_counter``)."""
 
     def __init__(self, group: str, port: int):
         import socket
 
         from vision_processor_tpu_torch.net.udp import UDPSocket
 
-        self.got = []
-        got = self.got
+        self.got, self.times = [], []
+        got, times = self.got, self.times
 
         class Sock(UDPSocket):
             def _parse(self, data):
+                times.append(time.perf_counter())
                 got.append(data)
 
         self.sock = Sock(group, port)
@@ -1423,10 +1442,10 @@ def access_units(packets) -> list:
     return [depacketize_h264(group) for group in by_ts.values()]
 
 
-def write_replay_dataset(rig, root: Path) -> str:
-    """Rig camera 0's scene as REPLAY_FRAMES BGR frames in a video file
-    (the Bayer frame's own RGB, so no second render), its gt.yml and its
-    geometry.yml (the field and camera 0's calibration), in ``root``.
+def write_replay_dataset(rig, root: Path, cam: int = 0) -> str:
+    """Rig camera ``cam``'s scene as REPLAY_FRAMES BGR frames in a video
+    file (the Bayer frame's own RGB, so no second render), its gt.yml and
+    its geometry.yml (the field and the camera's calibration), in ``root``.
     Returns the container and codec, as read back."""
     import dataclasses
 
@@ -1437,7 +1456,7 @@ def write_replay_dataset(rig, root: Path) -> str:
     from vision_processor_tpu_torch.models.camera import CameraModel
 
     geometry, scenes, raws, (width, height) = rig
-    raw = raws[0]  # RGGB: r, g / g, b cells
+    raw = raws[cam]  # RGGB: r, g / g, b cells
     bgr = np.ascontiguousarray(np.stack([raw[1::2, 1::2], raw[0::2, 1::2], raw[0::2, 0::2]],
                                         axis=-1))
     path = root / "scene.avi"
@@ -1463,20 +1482,20 @@ def write_replay_dataset(rig, root: Path) -> str:
     if n != REPLAY_FRAMES or first is None or first.shape != bgr.shape:
         fail(f"replay: read back {n} frames of {None if first is None else first.shape} "
              f"from {path.name}, wrote {REPLAY_FRAMES} of {bgr.shape}")
-    calib = next(c for c in geometry.calib if c.camera_id == 0)
+    calib = next(c for c in geometry.calib if c.camera_id == cam)
     model = CameraModel.from_proto(calib)
     (root / "geometry.yml").write_text(yaml.dump({
         "field": FIELD["field"],
         "calib": [{f.name: getattr(calib, f.name) for f in dataclasses.fields(calib)}]}))
     truth = []
     for f in range(REPLAY_FRAMES):
-        entry = {"camera_id": 0, "frame_number": f + 1, "t_capture": f / 30.0,
+        entry = {"camera_id": cam, "frame_number": f + 1, "t_capture": f / 30.0,
                  "t_sent": f / 30.0, "balls": [], "robots_yellow": [], "robots_blue": []}
-        for ball in scenes[0].balls:
+        for ball in scenes[cam].balls:
             px = model.field2image(np.array([ball.x, ball.y, 0.0]))
             entry["balls"].append({"confidence": 1.0, "x": ball.x, "y": ball.y,
                                    "pixel_x": float(px[0]), "pixel_y": float(px[1])})
-        for bot in scenes[0].bots:
+        for bot in scenes[cam].bots:
             px = model.field2image(np.array([bot.x, bot.y, bot.height]))
             entry[f"robots_{bot.team}"].append({
                 "confidence": 1.0, "robot_id": bot.bot_id, "x": bot.x, "y": bot.y,
@@ -1488,7 +1507,8 @@ def write_replay_dataset(rig, root: Path) -> str:
             f"{REPLAY_FRAMES} frames {width}x{height} BGR, read back {n}")
 
 
-def shipped_config(root: Path) -> Path:
+def shipped_config(root: Path, group: str = REPLAY_GROUP, port: int = REPLAY_PORT,
+                   stream_end: int = REPLAY_STREAM_END) -> Path:
     """The repository's config.yml as shipped, with only what a run here has
     to change: the camera path (the replayed video), the vision, GC and
     stream addresses (an isolated group), a 200 ms snapshot interval and
@@ -1497,10 +1517,10 @@ def shipped_config(root: Path) -> Path:
 
     config = yaml.safe_load((ROOT / "config.yml").read_text())
     config["camera"] = {**(config.get("camera") or {}), "path": str(root / "scene.avi")}
-    config["network"] = {"vision_ip": REPLAY_GROUP, "vision_port": REPLAY_PORT,
-                         "gc_ip": REPLAY_GROUP, "gc_port": REPLAY_PORT + 1}
+    config["network"] = {"vision_ip": group, "vision_port": port,
+                         "gc_ip": group, "gc_port": port + 1}
     config["stream"] = {**(config.get("stream") or {}), "ip_base_prefix": "224.99.99.",
-                        "ip_base_end": REPLAY_STREAM_END, "port": REPLAY_PORT + 2}
+                        "ip_base_end": stream_end, "port": port + 2}
     config["debug"] = {**(config.get("debug") or {}), "debug_stream_interval_ms": 200,
                        "debug_images": True}
     path = root / "config.yml"
@@ -2083,6 +2103,292 @@ def run_camera_mesh(torch, recorder, rig, card: str) -> dict:
     res.update(init_s=init_s, tensors_equal=n_equal, rollout_s=roll_s,
                rollout_launches=roll_launches, rollout_max_bot_err_mm=worst_roll)
     return res
+
+
+PROC_CAMS = (0, 1)  # the rig cameras, one OS process each
+PROC_GROUP, PROC_PORT = "224.99.99.135", 17731  # the processes' vision and GC sockets
+PROC_STREAM_END = 136  # their debug streams: 224.99.99.(136 + cam_id)
+PROC_LIMIT_S = 180.0  # each child process, from spawn to exit
+LAUNCHER_DIR = ROOT / "vision_processor_tpu_torch" / "scripts"
+# runs a launcher as __main__ in this process, then writes the port's launch
+# counts (ops/cuda.py LAUNCHES, 0 at the process's start) to a file
+COUNTING_RUNNER = """import json, runpy, sys
+launcher, counts = sys.argv[1], sys.argv[2]
+sys.argv = [launcher, *sys.argv[3:]]
+try:
+    runpy.run_path(launcher, run_name="__main__")
+finally:
+    from vision_processor_tpu_torch.ops import cuda
+    with open(counts, "w") as fh:
+        json.dump(dict(cuda.LAUNCHES), fh)
+"""
+
+
+def _card_files(pid: int) -> list:
+    """The card's device files (/dev/nvidiaN) process ``pid`` holds open."""
+    import re
+
+    out = []
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if re.fullmatch(r"/dev/nvidia\d+", target):
+                out.append(target)
+    except OSError:
+        pass
+    return out
+
+
+def _compute_apps() -> list:
+    """nvidia-smi's compute processes, as its pid column gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi --query-compute-apps: {smi.stderr.strip()}")
+    return [line.strip() for line in smi.stdout.splitlines() if line.strip()]
+
+
+def _device_step_traced(torch, rig) -> dict:
+    """One ``Processor.device_step`` of rig camera 0 (slice 1's
+    configuration) under ``utils/timing.py`` ``StageTimer.measure`` and
+    ``trace``: fails unless the Chrome trace it writes names B2's kernel
+    (csrc/blob_fused.cu ``blob_tile_kernel``) and the timer kept one device
+    time for the call."""
+    from vision_processor_tpu_torch.app.processor import Processor, TrackedArrays
+    from vision_processor_tpu_torch.utils.timing import StageTimer, trace
+
+    geometry, _, raws, (width, height) = rig
+    device = torch.device("cuda", 0)
+    proc = Processor(vision_config("auto"), device=device)
+    proc.geometry_check(width, height, geometry, 1)
+    tracked = TrackedArrays.build({}, 0.0, proc.det_cfg.max_tracked)
+    proc.device_step(raws[0], "RGGB", tracked)  # the first call's set-up stays out
+    timer = StageTimer(device)
+    log_dir = OUT / "trace"
+    for old in log_dir.glob("*.json"):
+        old.unlink()
+    with trace(str(log_dir)) as where:
+        timer.measure("device_step", proc.device_step, raws[0], "RGGB", tracked)
+    files = sorted(Path(where).glob("*.json"))
+    if len(files) != 1:
+        fail(f"trace: {len(files)} trace files in {where}, expected 1")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    b2 = [k for k in kernels if "blob_tile_kernel" in k]
+    device_ms = timer.device_ms("device_step")
+    if not b2:
+        fail(f"trace: no blob_tile_kernel among {len(kernels)} kernel events of "
+             f"device_step ({sorted(set(k[:40] for k in kernels))[:8]})")
+    if timer.counts["device_step"] != 1 or len(device_ms) != 1 or not device_ms[0] > 0:
+        fail(f"measure: counts {dict(timer.counts)}, device ms {device_ms}")
+    host_ms = timer.totals["device_step"] * 1e3
+    print(f"device_step under StageTimer.measure and trace: host {host_ms:.3f} ms to the "
+          f"fence, device span {device_ms[0]:.3f} ms; {len(kernels)} kernel events in "
+          f"{files[0].name}, B2 as {b2[0]!r}")
+    return {"host_ms": host_ms, "device_ms": device_ms[0], "kernel_events": len(kernels),
+            "b2_events": len(b2), "trace": str(files[0])}
+
+
+def run_processes(torch, rig, replay: dict, card: str) -> dict:
+    """The port as SSL teams run it, one OS process per camera: rig cameras
+    0 and 1 as MJPG AVIs (``write_replay_dataset``, 1080p RGGB frames of the
+    960x540 models as BGR) with their gt.yml and geometry.yml under
+    OUT/processes/cam<N>/, each under config.yml as shipped
+    (``shipped_config``, on this phase's group) with the dataset harness's
+    two changes (python/binary.py run_processor): the camera id and
+    ``wait_for_geometry``. Each runs the vision_processor launcher with no
+    ``--device`` (the card) in a child process (``COUNTING_RUNNER``, which
+    writes its launch counts at exit). Once both wait for geometry, the
+    smoke publishes the geometry with both calibrations every 100 ms
+    through the port's net/udp.py and records the wire. Fails unless both
+    exit 0 within PROC_LIMIT_S, each held the card's device file open
+    while it ran and nvidia-smi listed two more compute processes than
+    before them, each camera sent REPLAY_FRAMES detection frames with its
+    4 robot ids within 30 mm and its ball within 40 mm after the first,
+    each received the other's (t_offsets), and each launched B2 and B3
+    once, B4 twice and B1 twice (warp) or E4 and B7 once (gather) a frame.
+    Then the blob-benchmark launcher as a process on the replay phase's
+    dataset (camera 0's AVI): its ``[BlobMachine]`` line must equal the
+    replay phase's in-process line but for the processing time. Before
+    all, ``_device_step_traced``."""
+    phase("processes: one port process per camera")
+    import threading
+
+    import yaml
+
+    from vision_processor_tpu_torch.proto import SSL_WrapperPacket
+
+    traced = _device_step_traced(torch, rig)
+    geometry, scenes, _, _ = rig
+    workdir = OUT / "processes"
+    runner = workdir / "counting_runner.py"
+    workdir.mkdir(parents=True, exist_ok=True)
+    runner.write_text(COUNTING_RUNNER)
+    configs = {}
+    for cam in PROC_CAMS:
+        root = workdir / f"cam{cam}"
+        root.mkdir(exist_ok=True)
+        write_replay_dataset(rig, root, cam)
+        path = shipped_config(root, PROC_GROUP, PROC_PORT, PROC_STREAM_END)
+        config = yaml.safe_load(path.read_text())
+        config["cam_id"] = cam
+        config["debug"]["wait_for_geometry"] = True
+        path.write_text(yaml.dump(config))
+        configs[cam] = path
+    merged = SSL_WrapperPacket()
+    merged.ParseFromString(geometry_packet(geometry, PROC_CAMS[0]))
+    for cam in PROC_CAMS[1:]:
+        other = SSL_WrapperPacket()
+        other.ParseFromString(geometry_packet(geometry, cam))
+        merged.geometry.calib.extend(other.geometry.calib)
+    packet = merged.SerializeToString()
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    before_apps = _compute_apps()
+    wire = Datagrams(PROC_GROUP, PROC_PORT)
+    stop = threading.Event()
+
+    def publish():
+        while not stop.is_set():
+            wire.sock.sock.sendto(packet, wire.sock.address)
+            time.sleep(0.1)
+
+    publisher = threading.Thread(target=publish, daemon=True)
+    procs, logs, spawned = {}, {}, {}
+    most_apps, card_files = before_apps, {cam: [] for cam in PROC_CAMS}
+    try:
+        for cam in PROC_CAMS:
+            logs[cam] = open(workdir / f"cam{cam}.log", "wb")
+            spawned[cam] = time.perf_counter()
+            procs[cam] = subprocess.Popen(
+                [sys.executable, str(runner), str(LAUNCHER_DIR / "vision_processor.py"),
+                 str(workdir / f"cam{cam}.launches.json"), str(configs[cam])],
+                cwd=str(configs[cam].parent), env=env, stdout=logs[cam],
+                stderr=subprocess.STDOUT)
+        t0 = time.perf_counter()
+        while True:  # both wait for geometry: publish, so that their frames overlap
+            texts = {cam: (workdir / f"cam{cam}.log").read_text(errors="replace")
+                     for cam in PROC_CAMS}
+            if all("Waiting for geometry" in t for t in texts.values()):
+                break
+            for cam, proc in procs.items():
+                if proc.poll() is not None:
+                    fail(f"processes: camera {cam} exited with {proc.returncode} before "
+                         f"geometry:\n{texts[cam][-3000:]}")
+            if time.perf_counter() - t0 > PROC_LIMIT_S:
+                fail(f"processes: not both waiting for geometry after {PROC_LIMIT_S} s")
+            time.sleep(0.05)
+        ready = {cam: time.perf_counter() - spawned[cam] for cam in PROC_CAMS}
+        publisher.start()
+        while any(p.poll() is None for p in procs.values()):
+            for cam, proc in procs.items():
+                if proc.poll() is None:
+                    card_files[cam] = card_files[cam] or _card_files(proc.pid)
+            most_apps = max(most_apps, _compute_apps(), key=len)
+            if time.perf_counter() - t0 > PROC_LIMIT_S:
+                fail(f"processes: still running after {PROC_LIMIT_S} s")
+            time.sleep(0.1)
+        exited = {cam: time.perf_counter() - spawned[cam] for cam in PROC_CAMS}
+        time.sleep(0.3)
+    finally:
+        stop.set()
+        if publisher.is_alive():
+            publisher.join()
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs.values():
+            log.close()
+        wire.close()
+    for cam, proc in procs.items():
+        if proc.returncode != 0:
+            text = (workdir / f"cam{cam}.log").read_text(errors="replace")
+            fail(f"processes: camera {cam} exited with {proc.returncode}:\n{text[-3000:]}")
+    for cam in PROC_CAMS:
+        if not card_files[cam]:
+            fail(f"processes: camera {cam}'s process (pid {procs[cam].pid}) never held a "
+                 f"/dev/nvidiaN file open")
+    if len(most_apps) < len(before_apps) + len(PROC_CAMS):
+        fail(f"processes: nvidia-smi listed at most {len(most_apps)} compute processes while "
+             f"the children ran, {len(before_apps)} before them")
+    dets = {cam: [] for cam in PROC_CAMS}
+    for data, t in zip(wire.got, wire.times):
+        if data == packet:
+            continue
+        msg = SSL_WrapperPacket()
+        msg.ParseFromString(data)
+        if msg.HasField("detection"):
+            dets.setdefault(msg.detection.camera_id, []).append((t, msg))
+    out = {}
+    for cam in PROC_CAMS:
+        got = dets[cam]
+        if len(got) != REPLAY_FRAMES:
+            fail(f"processes: camera {cam} sent {len(got)} detection frames, expected "
+                 f"{REPLAY_FRAMES}")
+        worst = ball_worst = 0.0
+        for f, (_, wrapper) in enumerate(got[1:], start=1):
+            _, err, berr = check_detections(f"processes camera {cam} frame {f}", scenes[cam],
+                                            wrapper)
+            worst, ball_worst = max(worst, err), max(ball_worst, berr)
+        launches = json.loads((workdir / f"cam{cam}.launches.json").read_text())
+        warp = launches.get("band_pass", 0) > 0
+        want = {name: 0 for name in launches}
+        want.update(blob_response_fused=1, row_topk=1, query_select_topk=2)
+        if warp:
+            want.update(band_pass=2)
+        else:
+            want.update(corner_stack=1, gather_corners=1)
+        check_launches(f"processes camera {cam}", launches, want, REPLAY_FRAMES)
+        first, last = got[0][0], got[-1][0]
+        out[cam] = {"pid": procs[cam].pid, "ready_s": ready[cam], "exit_s": exited[cam],
+                    "first_detection_s": first - spawned[cam],
+                    "fps": (len(got) - 1) / (last - first), "max_bot_err_mm": worst,
+                    "max_ball_err_mm": ball_worst, "launches": launches,
+                    "resample_mode": "warp" if warp else "gather",
+                    "card_files": card_files[cam]}
+    # t_offsets: a camera's entry for a sender is set when its detection arrives
+    offsets = {cam: [list(m.detection.t_offsets) for _, m in dets[cam]] for cam in PROC_CAMS}
+    for cam in PROC_CAMS:
+        for other in PROC_CAMS:
+            if other != cam and not any(len(o) > other and o[other] != 0.0
+                                        for o in offsets[cam]):
+                fail(f"processes: camera {cam} never received camera {other}'s detections "
+                     f"(t_offsets {offsets[cam][-1]})")
+    for cam, res in out.items():
+        print(f"process camera {cam} (pid {res['pid']}, {res['resample_mode']}, held "
+              f"{res['card_files']}): waiting for geometry {res['ready_s']:.3f} s after "
+              f"spawn, first detection on the wire {res['first_detection_s']:.3f} s, exit "
+              f"{res['exit_s']:.3f} s; {REPLAY_FRAMES} detection frames, {res['fps']:.2f} "
+              f"frames/s from the first to the last; max bot err {res['max_bot_err_mm']:.2f} "
+              f"mm, max ball err {res['max_ball_err_mm']:.2f} mm; launches {res['launches']}; "
+              f"t_offsets of the last frame {offsets[cam][-1]} ({card})")
+    print(f"nvidia-smi compute processes: {len(before_apps)} before, {len(most_apps)} at "
+          f"most while the children ran (pids as listed: {before_apps} before, {most_apps} "
+          f"then; the children's pids: {[procs[cam].pid for cam in PROC_CAMS]})")
+
+    t0 = time.perf_counter()
+    bench = subprocess.run(
+        [sys.executable, str(LAUNCHER_DIR / "blob_benchmark.py"),
+         str(OUT / "replay" / "config.yml")],
+        cwd=str(OUT / "replay"), env=env, capture_output=True, text=True,
+        timeout=PROC_LIMIT_S)
+    bench_s = time.perf_counter() - t0
+    if bench.returncode != 0:
+        fail(f"processes: the blob-benchmark launcher exited with {bench.returncode}:\n"
+             f"{bench.stderr[-3000:]}")
+    machine = [ln for ln in bench.stdout.splitlines() if ln.startswith("[BlobMachine]")]
+    if len(machine) != 1 or machine[0].split()[:-1] != replay["blob_machine_line"].split()[:-1]:
+        fail(f"processes: the blob-benchmark launcher printed {machine}, the in-process run "
+             f"{replay['blob_machine_line']!r}")
+    print(f"blob-benchmark launcher as a process: [BlobMachine] equal to the replay phase's "
+          f"in-process line but for the processing time ({machine[0].split()[-1]} s against "
+          f"{replay['blob_machine_line'].split()[-1]} s); {bench_s:.3f} s from spawn to exit")
+    return {"cameras": out, "compute_apps_before": before_apps,
+            "compute_apps_most": most_apps, "blob_benchmark_s": bench_s,
+            "blob_machine_line": machine[0], "device_step_traced": traced}
 
 
 def _e1_inputs(torch):
@@ -3353,6 +3659,7 @@ def main() -> None:
     replay = run_replay(torch, rig, native_build)
     drivers = run_camera_drivers(torch, rig, card)
     mesh = run_camera_mesh(torch, recorder, rig, card)
+    processes = run_processes(torch, rig, replay, card)
     contracts = run_contracts(torch)
     for label, s, unit in (("slice 1 (warp, score-first)", s1, "frame"),
                            ("slice 2 (gather, circ-first, fused combo)", s2, "frame"),
@@ -3423,6 +3730,7 @@ def main() -> None:
         "pair height": pair,
         "debug stream and replay": replay,
         "camera drivers": drivers,
+        "processes": processes,
     }, indent=1))
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))

@@ -208,26 +208,38 @@ def test_multicam_app_pair_height_refinement(tmp_path, _one_torch_thread):
     wrapper.geometry.field.CopyFrom(field)
     for cam_id, w in enumerate(wrong_models):
         wrapper.geometry.calib.append(w.to_proto(cam_id))
-    refined = []
+    refined = []  # the calibrations the app broadcast, in order
+    # Multicast loopback hands the publisher its own datagrams back. One
+    # serialized before the app's broadcast was absorbed and read after it
+    # would write the published calibration back, so the publisher drops
+    # every datagram byte-equal to one it sent; serializing and absorbing
+    # hold one lock.
+    sent, lock = set(), threading.Lock()
 
     class Publisher(UDPSocket):
         def _parse(self, data):
-            got = SSL_WrapperPacket()
-            got.ParseFromString(data)
-            if got.HasField("geometry") and len(got.geometry.calib):
-                for calib in got.geometry.calib:  # absorb, like geom_publisher.py
-                    refined.append(calib)
-                    for mine in wrapper.geometry.calib:
-                        if mine.camera_id == calib.camera_id:
-                            mine.CopyFrom(calib)
-                            break
+            with lock:
+                if data in sent:
+                    return
+                got = SSL_WrapperPacket()
+                got.ParseFromString(data)
+                if got.HasField("geometry") and len(got.geometry.calib):
+                    for calib in got.geometry.calib:  # absorb, like geom_publisher.py
+                        refined.append(calib)
+                        for mine in wrapper.geometry.calib:
+                            if mine.camera_id == calib.camera_id:
+                                mine.CopyFrom(calib)
+                                break
 
     publisher = Publisher(GROUP, PORT)
     stop = threading.Event()
 
     def publish():
         while not stop.is_set():
-            publisher.send(wrapper)
+            with lock:
+                data = wrapper.SerializeToString()
+                sent.add(data)
+            publisher.sock.sendto(data, publisher.address)
             time.sleep(0.05)
 
     thread = threading.Thread(target=publish, daemon=True)

@@ -103,3 +103,24 @@ def test_before_e1_is_a_second_copy(smoke):
     with pytest.raises(ValueError, match="CUDA"):
         before["E1"](torch.zeros(1, 8, 128), torch.zeros(1, 8, 128),
                      torch.zeros(1, 1, dtype=torch.int32), 2)
+
+
+def test_counting_runner_passes_argv_and_writes_the_counts(smoke, tmp_path):
+    """The processes phase's runner runs a launcher as ``__main__`` with the
+    arguments after its own two, keeps the launcher's exit code and writes
+    the child's launch counts (every kernel's, 0 here) when it exits."""
+    import json
+    import subprocess
+    import sys
+
+    runner, counts = tmp_path / "runner.py", tmp_path / "counts.json"
+    runner.write_text(smoke.COUNTING_RUNNER)
+    launcher = smoke.LAUNCHER_DIR / "vision_processor.py"
+    proc = subprocess.run([sys.executable, str(runner), str(launcher), str(counts), "--help"],
+                          capture_output=True, text=True, timeout=120, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr
+    assert "--device" in proc.stdout
+    assert json.loads(counts.read_text()) == {name: 0 for name in cuda.LAUNCHES}
+    proc = subprocess.run([sys.executable, str(runner), str(launcher), str(counts), "--bad"],
+                          capture_output=True, text=True, timeout=120, cwd=str(tmp_path))
+    assert proc.returncode == 2 and "--bad" in proc.stderr

@@ -38,7 +38,7 @@ from ..io.camera import open_camera
 from ..io.rtp import RTPStreamer
 from ..io.snapshot import SnapshotWriter
 from ..net.udp import GCSocket, VisionSocket, get_real_time
-from ..ops.cuda import DEVICE_ERRORS
+from ..ops.cuda import DEVICE_ERRORS, require_device
 from ..ops.frame import quad2rgba, raw2quad
 from ..utils.config import VisionConfig
 from ..utils.log import get_logger
@@ -71,6 +71,7 @@ def calibration_packet(geometry, model, cam_id: int):
 
 class App:
     def __init__(self, config_path: str | None, device="cuda"):
+        require_device(device)
         self.config = VisionConfig.load(config_path)
         cfg = self.config
 

@@ -50,7 +50,7 @@ from ..models.detector import DetectorConfig
 from ..models.device_finish import pack_field_marks
 from ..net.udp import GCSocket, VisionSocket, get_real_time
 from ..ops import blob as B
-from ..ops.cuda import DEVICE_ERRORS
+from ..ops.cuda import DEVICE_ERRORS, require_device
 from ..ops.pipeline import BlobMachineConfig
 from ..ops.warp import resolve_resample_mode
 from ..parallel.multicam import (
@@ -81,6 +81,7 @@ class MultiCamApp:
     """N-camera production loop on one card."""
 
     def __init__(self, config_paths: list[str], device="cuda"):
+        require_device(device)
         configs = [VisionConfig.load(p) for p in config_paths]
         cfg0 = configs[0]
         heights_path = Path(cfg0.bot_heights_file)

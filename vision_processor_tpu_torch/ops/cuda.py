@@ -117,6 +117,15 @@ DEVICE_ERRORS = (KernelError,) + (
     (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ())
 
 
+def require_device(device) -> None:
+    """Raises unless torch can reach ``device`` when it is a CUDA device: an
+    app on a machine without a card stops at start instead of failing
+    every frame (nothing falls back to the CPU)."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"CUDA device {device} requested, but torch.cuda.is_available() "
+                           f"is false (pass --device cpu / device='cpu' to run on the CPU)")
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0

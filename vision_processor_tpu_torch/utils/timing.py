@@ -6,11 +6,16 @@ src/opencl.cpp:94-101, src/main.cpp:363-366):
 * ``StageTimer`` — per-stage host wall time; on a CUDA device each stage
   also records a pair of CUDA events on the current stream, so the device
   time of the work the stage enqueued is read without a fence per stage.
+  ``measure`` times one call up to a device fence.
+* ``trace``      — context manager around ``torch.profiler`` writing a
+  Chrome trace (chrome://tracing, Perfetto).
 * ``FrameStats`` — rolling frame-time statistics + overrun counting.
 """
 from __future__ import annotations
 
 import contextlib
+import os
+import tempfile
 import time
 from collections import defaultdict
 
@@ -49,6 +54,26 @@ class StageTimer:
         self.totals[name] += time.perf_counter() - t0
         self.counts[name] += 1
 
+    def measure(self, name: str, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)`` timed up to a fence of the timer's device
+        (``torch.cuda.synchronize``, the counterpart of
+        ``jax.block_until_ready``; the CPU needs none); on a CUDA device its
+        CUDA events are kept for ``device_ms(name)``. Returns fn's output."""
+        t0 = time.perf_counter()
+        if self._cuda():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            torch.cuda.synchronize(self.device)
+            self._events[name].append((start, end))
+        else:
+            out = fn(*args, **kwargs)
+        self.totals[name] += time.perf_counter() - t0
+        self.counts[name] += 1
+        return out
+
     def device_ms(self, name: str) -> list[float]:
         """Device milliseconds of each recorded run of ``name`` (waits for
         the recorded events)."""
@@ -72,6 +97,29 @@ class StageTimer:
         self.totals.clear()
         self.counts.clear()
         self._events.clear()
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None = None):
+    """``torch.profiler`` trace of a block (CPU activity, and CUDA activity
+    when CUDA is available), written as a Chrome trace into ``log_dir``
+    (default ``vptpu-torch-trace`` in the temporary directory); yields
+    ``log_dir``."""
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(), "vptpu-torch-trace")
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"trace.{os.getpid()}.{time.time_ns()}.json")
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield log_dir
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(path)
+        log.info("profiler trace written to %s", path)
 
 
 class FrameStats:
