@@ -123,6 +123,21 @@ Phases (any failure exits non-zero and prints no result line):
    the blob-benchmark launcher as a process on the replay phase's AVI
    must print the replay phase's ``[BlobMachine]`` line but for the
    processing time;
+   then the port's headline bench (``run_bench``,
+   ``vision_processor_tpu_torch/bench.py``): its four rigs (4 x 1080p
+   RGGB, max_blobs 2000, factor 1.25 and 1.0, dense with 1900 extra blobs
+   a camera) and ``main`` in warp mode, BENCH_ROUNDS rounds of
+   BENCH_FRAMES frame-sets and a tracked rollout of BENCH_TRACKED, its
+   JSON line printed as ``bench: {...}``. It must find 16 bots plain and
+   at factor 1.0, recall 16/16 of the planted robots on the dense scene
+   in the sustained run, untracked and after the tracked rollout, agree
+   with the uncapped oracle (1.0), and launch B1
+   twice, B2 once, B3 once (where the row stage ran) and B4 twice for each
+   camera step it ran. The dense counts are printed beside the JAX
+   package's on the same rig (``JAX_DENSE_COUNTS``, computed on the CPU).
+   Then one dense frame-set with its kernel inputs recorded for phase 8,
+   and ``main`` in gather mode at one round on the same raws (E4 and B7
+   once a camera step, 16 bots);
 7. E1 and E5 at their own contracts (no production path runs them): the
    banded warp pass with window starts at its experiment's shapes, and the
    row top-k at rows-per-block 8, 32 and 64 on its experiment's shapes;
@@ -143,8 +158,10 @@ Phases (any failure exits non-zero and prints no result line):
    of the checkout DIR (its own package and build), in turns. B3 and B4
    must equal select_m (the Pallas ``_select_m``) in every slot,
    exhausted ones included, at every list bucket of csrc/topk.cu and
-   above it, on slice 1's calls, slice 4's factor-1.0 map, Q = 512 and
-   tie/exhausted cases, and with ``--before DIR`` equal to DIR's B3 and
+   above it, on slice 1's calls, slice 4's factor-1.0 map, Q = 512, the
+   bench's dense frame-set (B3 at the m-lane tier's m, B4's ring at Q =
+   512) and tie/exhausted cases, and with ``--before DIR`` equal to DIR's
+   B3 and
    B4 and timed in turns with them; B4's ring call is also timed at m = 1
    and with 32 blobs, and a one-element fill gives the card's launch
    floor. B6 must be bit-equal to its plain version in all six outputs on
@@ -156,10 +173,10 @@ Phases (any failure exits non-zero and prints no result line):
    and timed in turns with it), and prints the warps a block it chose.
    B6 and E5 print their ``-Xptxas -v`` registers.
 
-Each slice, each App phase, the camera mesh and the contract run of E1
-and E5 is driven with the launch counts set to 0 just before it and read
-just after; each child process of the processes phase starts at 0 and
-writes its counts when it exits. The last line is
+Each slice, each App phase, the camera mesh, each bench run and the
+contract run of E1 and E5 is driven with the launch counts set to 0 just
+before it and read just after; each child process of the processes phase
+starts at 0 and writes its counts when it exits. The last line is
 ``{"ok": true, "device": {...}}``; the line before it the per-kernel JSON
 record.
 """
@@ -339,50 +356,19 @@ SLICE4_FACTOR1_FRAME_SETS = 3
 
 
 def bench_rig(n_cams: int = N_CAMS):
-    """The 4-camera bench rig (bench.py build_rig), numpy only: one camera
-    per field quadrant (960x540 model = 1080p RGGB raw, focal 900, k2 0.02,
-    4.5 m high over the Div B field), 4 bots with ids (cam * 4 + i) % 16,
-    alternately yellow and blue, and a ball each, seed 7, noise 1.5. The
-    geometry is the port's plain one (no protobuf) and holds every camera's
+    """The 4-camera bench rig, ``vision_processor_tpu_torch/bench.py
+    build_rig`` (bench.py's rig without JAX): one camera per field quadrant
+    (960x540 model = 1080p RGGB raw, focal 900, k2 0.02, 4.5 m high over
+    the Div B field), 4 bots with ids (cam * 4 + i) % 16, alternately
+    yellow and blue, and a ball each, seed 7, noise 1.5. The geometry is
+    the port's plain one (no protobuf) and holds every camera's
     calibration. Returns (geometry, scenes, raws, (width, height))."""
-    import numpy as np
+    from vision_processor_tpu_torch.bench import build_rig
 
-    from vision_processor_tpu_torch.io.synthetic import (
-        Scene, SceneBall, SceneBot, render_raw,
-    )
-    from vision_processor_tpu_torch.models.camera import (
-        CameraModel, visible_field_extent_estimation,
-    )
-    from vision_processor_tpu_torch.net.geometry_io import (
-        calibration_from_model, geometry_from_dict,
-    )
-
-    width, height = 960, 540
-    geometry = geometry_from_dict(FIELD)
-    geometry.calib = []
-    rng = np.random.default_rng(7)
-    scenes, raws = [], []
-    for cam_id in range(n_cams):
-        lo, hi = visible_field_extent_estimation(cam_id, n_cams, geometry.field, False)
-        center = (lo + hi) / 2
-        model = CameraModel(
-            focal_length=900.0,
-            principal_point=np.array([width / 2, height / 2]),
-            distortion_k2=0.02,
-            pos=np.array([center[0], center[1], 4500.0]),
-            size=np.array([width, height]),
-        )
-        geometry.calib.append(calibration_from_model(model, cam_id))
-        bots = []
-        for i in range(4):
-            bx = float(rng.uniform(lo[0] + 400, hi[0] - 400))
-            by = float(rng.uniform(lo[1] + 400, hi[1] - 400))
-            bots.append(SceneBot((cam_id * 4 + i) % 16, "yellow" if i % 2 == 0 else "blue",
-                                 bx, by, float(rng.uniform(-3, 3))))
-        scene = Scene(bots=bots, balls=[SceneBall(float(center[0]), float(center[1]))],
-                      noise_sigma=1.5, seed=cam_id)
-        scenes.append(scene)
-        raws.append(render_raw(model, geometry.field, scene, "RGGB"))
+    rig = build_rig(n_cams, resampling_factor=1.25, return_scenes=True,
+                    resample_mode="gather", device="cuda")
+    geometry, scenes, raws = rig[7], rig[9], list(rig[1])
+    width, height = (int(v) for v in rig[8][0][0].size)
     return geometry, scenes, raws, (width, height)
 
 
@@ -2391,6 +2377,188 @@ def run_processes(torch, rig, replay: dict, card: str) -> dict:
             "blob_machine_line": machine[0], "device_step_traced": traced}
 
 
+# the bench phase's warp run: timed rounds, frame-sets a round, and the
+# tracked rollout's frame-sets (20, the frame its precision keys name)
+BENCH_ROUNDS, BENCH_FRAMES, BENCH_TRACKED = 3, 5, 20
+BENCH_GATHER = dict(rounds=1, frames=2, production_frames=3, tracked_frames=2)
+# launches per camera step of the bench (one camera through the blob machine
+# and the hypothesis search), by resample mode; B3 only where the step took
+# a row stage (not the flat-map tier)
+BENCH_LAUNCHES = {
+    "warp": {"band_pass": 2, "blob_response_fused": 1, "query_select_topk": 2,
+             "corner_stack": 0, "gather_corners": 0, "resample_packed": 0,
+             "circularity_fused": 0, "combo_chain": 0},
+    "gather": {"band_pass": 0, "blob_response_fused": 1, "query_select_topk": 2,
+               "corner_stack": 1, "gather_corners": 1, "resample_packed": 0,
+               "circularity_fused": 0, "combo_chain": 0},
+}
+# the JAX package's counts on the same dense rig (bench.py's, factor 1.25),
+# on the CPU, from tests/jax_bench_counts.py (printed beside the port's,
+# not gated; the blob counts are the rolled bank's entry (BENCH_FRAMES - 1)
+# % 4, where a round of BENCH_FRAMES frame-sets ends):
+#   JAX_PLATFORMS=cpu python tests/jax_bench_counts.py --resample warp --frames 5
+#   JAX_PLATFORMS=cpu python tests/jax_bench_counts.py --resample gather --frames 5
+JAX_DENSE_COUNTS = {
+    "warp": {"bank_entry": 0, "blob_counts_dense": [1475, 1370, 1466, 1469],
+              "dense_bots_device_untracked": 93, "dense_bots_oracle": 194,
+              "dense_oracle_hypotheses": 412},
+    "gather": {"bank_entry": 0, "blob_counts_dense": [1472, 1353, 1460, 1473],
+              "dense_bots_device_untracked": 99, "dense_bots_oracle": 198,
+              "dense_oracle_hypotheses": 420},
+}
+
+
+class CallCounts:
+    """Counts the calls of a module function while installed (the original
+    still runs): ``by`` keys each call by ``key(result)``."""
+
+    def __init__(self, module, attr: str, key=lambda out: None):
+        self.module, self.attr, self.key = module, attr, key
+        self.by = {}
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.module, self.attr)
+
+        def counted(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            k = self.key(out)
+            self.by[k] = self.by.get(k, 0) + 1
+            return out
+
+        setattr(self.module, self.attr, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.fn)
+
+    @property
+    def n(self) -> int:
+        return sum(self.by.values())
+
+
+def _bench_main(torch, label: str, mode: str, rigs, **kw) -> tuple[dict, dict, int, dict]:
+    """The port's bench ``main`` on ``rigs`` with its JSON line captured:
+    (result, launches, camera steps, compaction tiers taken). Launch counts
+    set to 0 just before, read just after; the camera steps
+    (``parallel.multicam._single_cam_step``) and the tiers
+    (``ops.blob.compaction_tier``) counted alongside."""
+    import contextlib
+    import io
+
+    from vision_processor_tpu_torch import bench as PB
+    from vision_processor_tpu_torch.ops import blob as OB
+    from vision_processor_tpu_torch.ops import cuda as K
+    from vision_processor_tpu_torch.parallel import multicam as M
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with CallCounts(M, "_single_cam_step") as steps, \
+            CallCounts(OB, "compaction_tier", key=tuple) as tiers, \
+            contextlib.redirect_stdout(buf):
+        K.reset_launches()
+        result = PB.main(resample_mode=mode, device="cuda", out=str(OUT / "bench" / mode),
+                         rigs=rigs, **kw)
+        launches = dict(K.LAUNCHES)
+    secs = time.perf_counter() - t0
+    line = buf.getvalue().strip().splitlines()[-1]
+    if json.loads(line) != result:
+        fail(f"{label}: the bench's last line is not its result")
+    print(f"bench: {line}")
+    n = steps.n
+    tiers = {f"{kind} m={m}": c for (kind, m), c in sorted(tiers.by.items())}
+    print(f"{label}: {secs:.1f} s; {n} camera steps, compaction tiers {tiers}; launches "
+          f"{launches}")
+    want = {k: v * n for k, v in BENCH_LAUNCHES[mode].items()}
+    want["row_topk"] = n - sum(c for k, c in tiers.items() if k.startswith("flat"))
+    bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if bad or n == 0:
+        fail(f"{label}: launches (got, expected) {bad} over {n} camera steps")
+    return result, launches, n, {"tiers": tiers, "seconds": secs}
+
+
+def run_bench(torch, recorder) -> dict:
+    """The port's headline bench (``vision_processor_tpu_torch/bench.py``)
+    at full width: 4 x 1080p RGGB, max_blobs 2000, factor 1.25 and 1.0,
+    dense with 1900 extra blobs a camera, warp, BENCH_ROUNDS rounds of
+    BENCH_FRAMES frame-sets; its JSON line printed as ``bench: ...``. Fails
+    unless 16 bots are found plain and at factor 1.0, the dense recall is
+    16/16 in the sustained run, untracked and tracked, the oracle agrees
+    (1.0), and B1-B4 were launched as many times as the camera steps the
+    bench ran ask for. Then one dense frame-set with its kernel inputs
+    recorded (the m-lane B3 and the Q = 512 B4 that phase 8 holds against
+    their plain versions), and the bench once more in gather mode at one
+    round on the same raws (E4 and B7 launched, 16 bots)."""
+    phase("bench: vision_processor_tpu_torch/bench.py (warp, then gather)")
+    from vision_processor_tpu_torch import bench as PB
+    from vision_processor_tpu_torch.parallel import multicam as M
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    rigs = PB.build_rigs("warp", dev)
+    rig_s = time.perf_counter() - t0
+    result, launches, steps, info = _bench_main(
+        torch, "bench (warp)", "warp", rigs, rounds=BENCH_ROUNDS, frames=BENCH_FRAMES,
+        tracked_frames=BENCH_TRACKED)
+    d = result["detail"]
+    gates = {"bots_found_4cams": 16, "bots_found_factor1": 16, "dense_bot_recall": "16/16",
+             "dense_planted_recall_untracked": "16/16", "dense_recall_tracked_t20": "16/16",
+             "dense_oracle_agreement": 1.0}
+    bad = {k: (d[k], v) for k, v in gates.items() if d[k] != v}
+    if bad:
+        fail(f"bench (warp): (got, expected) {bad}")
+    for mode, jax_counts in JAX_DENSE_COUNTS.items():
+        print(f"dense rig, port on the card (warp) against the JAX package on the CPU "
+              f"({mode}, tests/jax_bench_counts.py): blob_counts_dense "
+              f"{d['blob_counts_dense']} / {jax_counts['blob_counts_dense']}, "
+              f"dense_bots_device_untracked {d['dense_bots_device_untracked']} / "
+              f"{jax_counts['dense_bots_device_untracked']}, dense_bots_oracle "
+              f"{d['dense_bots_oracle']} / {jax_counts['dense_bots_oracle']}")
+
+    # one dense frame-set with its kernel inputs recorded, for phase 8
+    cfg, raws, packed, scales, offsets, colors, params, _, cams, _ = rigs["dense"]
+    refs, marks = PB.finisher_inputs(cams, cfg.n_cams, dev)
+    from vision_processor_tpu_torch.utils.state import to_torch
+
+    grids = M.make_resample_grids(cfg, packed, 150.0, scales, offsets, device=dev)
+    inputs = (to_torch(raws, dev), *to_torch((packed, scales, offsets, colors), dev),
+              PB.untracked_prior(cfg, dev))
+    for kept in recorder.calls.values():
+        kept.clear()
+    step = M.batched_step_host_tracked(cfg)
+    recorder.on = True
+    _, items, d2h = audit_device_step(
+        torch, lambda: step(*inputs, params, grids, refs, marks))
+    torch.cuda.synchronize()
+    recorder.on = False
+    # reported, not gated: the dense tiers may read more than the slices' 2
+    print(f"dense frame-set: {items} device->host reads in the step ({items / cfg.n_cams:.1f} "
+          f"a camera); tensors that left the card: {sorted(set(d2h)) or 'none'}")
+    calls = {name: list(recorder.calls[name]) for name in ("row_topk", "query_select_topk")}
+    row_m = sorted({mm for (_, mm), _ in calls["row_topk"]})
+    ring_q = sorted({q.shape[0] for (q, *_), kw in calls["query_select_topk"]
+                     if kw["by_rank"]})
+    print(f"dense frame-set recorded: B3 at m {row_m}, B4 ring at Q {ring_q}")
+    if max(ring_q) != 512:
+        fail(f"bench: the dense frame-set's ring ran at Q {ring_q}, not 512")
+
+    t1 = time.perf_counter()
+    rigs_g = PB.build_rigs("gather", dev,
+                           raws={k: rigs[k][1] for k in ("plain", "dense")})
+    result_g, launches_g, steps_g, info_g = _bench_main(
+        torch, "bench (gather, one round)", "gather", rigs_g, **BENCH_GATHER)
+    if result_g["detail"]["bots_found_4cams"] != 16:
+        fail(f"bench (gather): bots_found_4cams {result_g['detail']['bots_found_4cams']}")
+    gather_s = time.perf_counter() - t1
+    wall = time.perf_counter() - t0
+    print(f"bench phase: {wall:.1f} s (rigs {rig_s:.1f} s, warp bench {info['seconds']:.1f} "
+          f"s, gather rigs and bench {gather_s:.1f} s)")
+    return {"warp": result, "gather": result_g, "launches": launches,
+            "launches_gather": launches_g, "camera_steps": steps,
+            "camera_steps_gather": steps_g, "tiers": info["tiers"],
+            "tiers_gather": info_g["tiers"], "seconds": wall, "rig_seconds": rig_s,
+            "dense_reads": items, "dense_calls": calls}
+
+
 def _e1_inputs(torch):
     """E1's experiment (pallas_band_warp.py main()): src (4, 720, 896) u8
     values, pos (4, 432, 896) a bent ramp with per-channel quarter-pixel
@@ -2915,14 +3083,15 @@ def _same_slots(torch, got, want) -> bool:
     return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def _check_b3(torch, calls, calls_f1, before):
+def _check_b3(torch, calls, calls_f1, before, calls_dense=()):
     """Every slot, exhausted ones included, equal to select_m's (the
     Pallas _select_m) and, where ``before`` has it, to the other
     checkout's B3; values and valid indices equal to the plain version's;
     on slice 1's map at its m and at 19 (the m-lane tier's), slice 4's
-    factor-1.0 map at its m and at 16, and a tie/exhausted map at every m
-    of TOPK_MS. Timed at those four path shapes, in turns with the other
-    checkout's B3."""
+    factor-1.0 map at its m and at 16, the bench's dense frame-set's map at
+    each m it ran (``calls_dense``: the m-lane tier), and a tie/exhausted
+    map at every m of TOPK_MS. Timed at those path shapes, in turns with
+    the other checkout's B3."""
     import vision_processor_tpu_torch.ops.topk as T
 
     row_topk = T.row_topk.__wrapped__
@@ -2939,6 +3108,11 @@ def _check_b3(torch, calls, calls_f1, before):
             (f"slice 1 {tuple(masked.shape)} m=19", masked, 19),
             (f"factor 1.0 {tuple(masked1.shape)} m={mm1}", masked1, mm1),
             (f"factor 1.0 {tuple(masked1.shape)} m=16", masked1, 16)]
+    seen_m = set()
+    for (xd, md), _ in calls_dense:
+        if md not in seen_m:
+            seen_m.add(md)
+            path.append((f"bench dense {tuple(xd.shape)} m={md}", xd, md))
     cases = path + [(f"ties/exhausted m={m}", x, m) for m in TOPK_MS]
     err = 0.0
     for label, xx, m in cases:
@@ -2988,14 +3162,16 @@ def _query_bound(q, k, m):
     return 12 * q + 12 * k + 8 * q * m, 6 * q * k
 
 
-def _check_b4(torch, calls, before):
+def _check_b4(torch, calls, before, calls_dense=()):
     """Every slot, exhausted ones included, equal to the plain version's
     (select_m over the materialized scores) and, where ``before`` has it,
     to the other checkout's B4; on slice 1's ring and tracked calls, the
     ring's inputs at Q = 512 (the dense window's anchors: the 128 queries
-    at four offsets) and at every m of TOPK_MS, and a tie/exhausted case.
-    Timed per frame (ring + tracked) and per call at Q = 128, 160 and 512,
-    in turns with the other checkout's B4."""
+    at four offsets) and at every m of TOPK_MS, the bench's dense
+    frame-set's first ring call (``calls_dense``: Q = 512, its own blob
+    table) and tracked call, and a tie/exhausted case. Timed per frame
+    (ring + tracked) and per call at Q = 128, 160 and 512 and on the dense
+    calls, in turns with the other checkout's B4."""
     import vision_processor_tpu_torch.ops.topk as T
 
     query = T.query_select_topk.__wrapped__
@@ -3012,6 +3188,13 @@ def _check_b4(torch, calls, before):
     cases = [(f"{'ring' if c[5] else 'tracked'} Q={c[0].shape[0]} K={c[2].shape[0]} "
               f"m={c[4]} {'rank' if c[5] else '-d2'}", c) for c in frame]
     cases.append((f"ring at Q=512 m={ring[4]}", q512))
+    dense = {}
+    for (qxy, r2, bxy, rank), kw in calls_dense:
+        dense.setdefault(kw["by_rank"], (*(t.contiguous() for t in (qxy, r2, bxy, rank)),
+                                         kw["m"], kw["by_rank"]))
+    cases += [(f"bench dense {'ring' if c[5] else 'tracked'} Q={c[0].shape[0]} "
+               f"K={c[2].shape[0]} m={c[4]}", c) for c in dense.values()]
+    n_timed = len(frame) + 1 + len(dense)
     cases += [(f"ring m={m} {'rank' if by else '-d2'}", (*ring[:4], m, by))
               for m in TOPK_MS for by in (True, False)]
     qxy = torch.zeros((3, 2), device="cuda")
@@ -3033,7 +3216,7 @@ def _check_b4(torch, calls, before):
             err = max(err, float((got[0][0][valid] - want[0][valid]).abs().max()))
     print(f"B4 query_select_topk: every slot equal to the plain version's"
           f"{'' if before is None else ' and to ' + before['root'] + chr(39) + 's B4'} in "
-          f"{len(cases)} cases ({'; '.join(label for label, _ in cases[:len(frame) + 1])}; "
+          f"{len(cases)} cases ({'; '.join(label for label, _ in cases[:n_timed])}; "
           f"ring m={TOPK_MS}; ties/exhausted)")
 
     def run_frame(fn):
@@ -3051,7 +3234,7 @@ def _check_b4(torch, calls, before):
           f"{_before_text(t_old, before)}; plain {_fmt(t_p)}; bound {bnd[0]:.6f} ms "
           f"({bnd[1]}); no library call")
     per_call = {}
-    for label, (a, b, c, d, m, by) in cases[:len(frame) + 1]:
+    for label, (a, b, c, d, m, by) in cases[:n_timed]:
         t_c, t_c_old = _time_in_turns(torch, lambda: query(a, b, c, d, m=m, by_rank=by),
                                       lambda: before["B4"](a, b, c, d, m=m, by_rank=by),
                                       before)
@@ -3584,11 +3767,12 @@ def _check_e5(torch, contract, before):
 
 
 def check_kernels(torch, s1: dict, s2: dict, s3: dict, s4: dict, s4f1: dict,
-                  contracts: dict, before) -> list:
+                  contracts: dict, bench: dict, before) -> list:
     """Each kernel on the last frame's inputs of the slice whose path it
     belongs to: B1-B4 slice 1's, B5-B7 slice 2's, E4 slice 3's, E2/E3 slice
     4's; E1 and E5 on their contract run's inputs; B2 and B5 also on slice
-    4's factor-1.0 map, beside the other checkout's where ``before`` has it."""
+    4's factor-1.0 map, B3 and B4 also on the bench's dense frame-set,
+    beside the other checkout's where ``before`` has it."""
     phase("kernels vs plain")
     one = torch.zeros(1, device="cuda")
     floor = time_fn(torch, one.zero_)
@@ -3599,8 +3783,10 @@ def check_kernels(torch, s1: dict, s2: dict, s3: dict, s4: dict, s4f1: dict,
     return [
         ("B1", _check_b1(torch, c1["band_pass"])),
         ("B2", _check_b2(torch, c1["blob_response_fused"], b2_f1, before)),
-        ("B3", _check_b3(torch, c1["row_topk"], s4f1["calls"]["row_topk"], before)),
-        ("B4", _check_b4(torch, c1["query_select_topk"], before)),
+        ("B3", _check_b3(torch, c1["row_topk"], s4f1["calls"]["row_topk"], before,
+                         bench["dense_calls"]["row_topk"])),
+        ("B4", _check_b4(torch, c1["query_select_topk"], before,
+                         bench["dense_calls"]["query_select_topk"])),
         ("B5", _check_b5(torch, c2["circularity_fused"], b2_f1, before)),
         ("B6", _check_b6(torch, c2["combo_chain"], before)),
         ("B7", _check_b7(torch, c2["gather_corners"])),
@@ -3660,6 +3846,7 @@ def main() -> None:
     drivers = run_camera_drivers(torch, rig, card)
     mesh = run_camera_mesh(torch, recorder, rig, card)
     processes = run_processes(torch, rig, replay, card)
+    bench = run_bench(torch, recorder)
     contracts = run_contracts(torch)
     for label, s, unit in (("slice 1 (warp, score-first)", s1, "frame"),
                            ("slice 2 (gather, circ-first, fused combo)", s2, "frame"),
@@ -3686,7 +3873,7 @@ def main() -> None:
                                        "frame-set")
         s4["profile"] = profile_frames(torch, s4["run"], STAGES_SLICE4, "slice 4",
                                        "frame-set")
-    results = check_kernels(torch, s1, s2, s3, s4, s4f1, contracts, before)
+    results = check_kernels(torch, s1, s2, s3, s4, s4f1, contracts, bench, before)
     # E3 computes E2's function: one kernel, one measurement, two rows
     e2 = dict(results)["E2"]
     results.insert([row for row, _ in results].index("E4"),
@@ -3731,6 +3918,7 @@ def main() -> None:
         "debug stream and replay": replay,
         "camera drivers": drivers,
         "processes": processes,
+        "bench": {k: v for k, v in bench.items() if k != "dense_calls"},
     }, indent=1))
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))

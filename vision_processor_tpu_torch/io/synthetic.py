@@ -91,6 +91,42 @@ def _field_lines_mask(pos_xy: np.ndarray, field) -> np.ndarray:
     return mask
 
 
+def _paint_balls(img: np.ndarray, ground: np.ndarray, balls: list) -> None:
+    """Paints each ball's disc on the carpet: the pixels whose ground point
+    lies within the ball's radius, as a test of every pixel finds them.
+
+    Only the pixels whose ground point falls in a field cell that the
+    ball's bounding box touches are tested. A cell is as wide as the
+    largest ball, so a box touches at most 2 x 2 of them; each tested pixel
+    gets the same squared distance as in a full-frame test. A dense scene
+    (about 1900 balls a camera) then costs milliseconds, not a full-frame
+    pass a ball."""
+    if not balls:
+        return
+    cell = 2.0 * max(float(b.radius) for b in balls)
+    g = ground.reshape(-1, 2)
+    cells = np.floor(np.asarray([[b.x, b.y] for b in balls], dtype=np.float64) / cell)
+    lo, hi = cells.min(axis=0) - 1, cells.max(axis=0) + 1
+    with np.errstate(invalid="ignore"):
+        kxy = np.floor(g / cell)
+        near = np.all((kxy >= lo) & (kxy <= hi), axis=1)  # False where not finite
+    pix = np.flatnonzero(near)
+    span = int(hi[1] - lo[1]) + 1
+    key = ((kxy[pix, 0] - lo[0]) * span + (kxy[pix, 1] - lo[1])).astype(np.int64)
+    order = np.argsort(key, kind="stable")
+    key, pix = key[order], pix[order]
+    flat = img.reshape(-1, 3)
+    for ball in balls:
+        r = float(ball.radius)
+        x0, x1 = np.floor((np.array([ball.x, ball.x]) + [-r, r]) / cell) - lo[0]
+        y0, y1 = np.floor((np.array([ball.y, ball.y]) + [-r, r]) / cell) - lo[1]
+        cand = [pix[np.searchsorted(key, k, "left"):np.searchsorted(key, k, "right")]
+                for k in {int(kx * span + ky) for kx in (x0, x1) for ky in (y0, y1)}]
+        cand = np.concatenate(cand)
+        d2 = np.sum((g[cand] - [ball.x, ball.y]) ** 2, axis=-1)
+        flat[cand[d2 <= ball.radius**2]] = BALL_ORANGE
+
+
 def render_rgb(
     model: CameraModel, field, scene: Scene, size: tuple[int, int] | None = None
 ) -> np.ndarray:
@@ -118,9 +154,7 @@ def render_rgb(
     img[_field_lines_mask(np.nan_to_num(ground, nan=1e9), field)] = LINE
 
     # balls: disc on the carpet
-    for ball in scene.balls:
-        d2 = np.sum((ground - [ball.x, ball.y]) ** 2, axis=-1)
-        img[d2 <= ball.radius**2] = BALL_ORANGE
+    _paint_balls(img, ground, scene.balls)
 
     # bots: cover plane at z=height (painted last -> occludes carpet/ball)
     for bot in scene.bots:
