@@ -8,6 +8,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --out DIR  # long outputs (ptxas, profile, JSON) to DIR
     python3 chip_smoke.py --before DIR  # + B2-B6, E1, E5 of the checkout DIR, timed in
                                         #   turns with this checkout's
+    python3 chip_smoke.py --soak-frames N  # the soak's pipelined run for 30 + N
+                                           #   frame-sets (default 300)
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -138,6 +140,18 @@ Phases (any failure exits non-zero and prints no result line):
    Then one dense frame-set with its kernel inputs recorded for phase 8,
    and ``main`` in gather mode at one round on the same raws (E4 and B7
    once a camera step, 16 bots);
+   then the soak (``run_soak``): the real ``MultiCamApp`` on the card
+   over a bank of 12 frames a camera of the bench's dense rig (robots and
+   ball on a 300 mm loop, 2 entries with the clutter), 30 + 300
+   frame-sets pipelined and 30 + 200 staggered, with a geometry packet
+   every 3rd frame-set, a hot reload of camera 0's circularity and a
+   4-frame-set outage of camera 1. No kernel may be built after the first
+   frame-set, nor a step, grid or marks after the warm-up; the CUDA
+   allocator's live blocks and bytes, the threads and the descriptors
+   stay flat; every frame reaches the wire, with its planted robots, and
+   with their ids and the ball wherever the JAX package finds them on the
+   same frames (``JAX_SOAK_FOUND``); B1-B4 launch 8/4/4/8 times every
+   frame-set;
 7. E1 and E5 at their own contracts (no production path runs them): the
    banded warp pass with window starts at its experiment's shapes, and the
    row top-k at rows-per-block 8, 32 and 64 on its experiment's shapes;
@@ -183,14 +197,18 @@ record.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import logging
 import math
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "smoke"  # long outputs; --out moves them
@@ -872,6 +890,22 @@ def geometry_packet(geometry, cam_id: int | None) -> bytes:
     for f in dataclasses.fields(calib):
         setattr(proto, f.name, getattr(calib, f.name))
     return pkt.SerializeToString()
+
+
+def fleet_packet(geometry, cams) -> bytes:
+    """``geometry_packet`` with the calibrations of every camera in ``cams``,
+    as a geometry publisher sends it to a fleet."""
+    from vision_processor_tpu_torch.proto import SSL_WrapperPacket
+
+    merged = SSL_WrapperPacket()
+    for cam in cams:
+        one = SSL_WrapperPacket()
+        one.ParseFromString(geometry_packet(geometry, cam))
+        if merged.HasField("geometry"):
+            merged.geometry.calib.extend(one.geometry.calib)
+        else:
+            merged.CopyFrom(one)
+    return merged.SerializeToString()
 
 
 def run_idle(torch, rig) -> dict:
@@ -2224,13 +2258,7 @@ def run_processes(torch, rig, replay: dict, card: str) -> dict:
         config["debug"]["wait_for_geometry"] = True
         path.write_text(yaml.dump(config))
         configs[cam] = path
-    merged = SSL_WrapperPacket()
-    merged.ParseFromString(geometry_packet(geometry, PROC_CAMS[0]))
-    for cam in PROC_CAMS[1:]:
-        other = SSL_WrapperPacket()
-        other.ParseFromString(geometry_packet(geometry, cam))
-        merged.geometry.calib.extend(other.geometry.calib)
-    packet = merged.SerializeToString()
+    packet = fleet_packet(geometry, PROC_CAMS)
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     before_apps = _compute_apps()
     wire = Datagrams(PROC_GROUP, PROC_PORT)
@@ -2557,6 +2585,557 @@ def run_bench(torch, recorder) -> dict:
             "camera_steps_gather": steps_g, "tiers": info["tiers"],
             "tiers_gather": info_g["tiers"], "seconds": wall, "rig_seconds": rig_s,
             "dense_reads": items, "dense_calls": calls}
+
+
+# ---------------------------------------------------------------------------
+# the soak: the fleet for hundreds of frame-sets (the port's test_soak.py)
+# ---------------------------------------------------------------------------
+
+SOAK_GROUP, SOAK_PORT, SOAK_GC_PORT = "224.99.99.151", 17811, 17812  # no other phase's
+SOAK_BANK = 12  # distinct frames a camera: its robots and ball on a loop
+SOAK_DENSE = (5, 11)  # the bank entries with the bench's dense clutter
+SOAK_RADIUS = 300.0  # mm, the loop's radius (tests/test_soak.py:150-163)
+SOAK_EDGE = 250.0  # mm a robot's loop keeps inside its camera's visible extent
+SOAK_CLEAR = 250.0  # mm of clutter-free ground around each robot (bench.py's)
+SOAK_WARM = 30  # frame-sets before the gates' first reading (W)
+SOAK_FRAMES = {"pipelined": 300, "staggered": 200}  # N, the frame-sets after W
+SOAK_OUTAGE = 4  # frame-sets of camera 1's outage, from W + N/2
+SOAK_CIRC = (15.0, 12.0)  # camera 0's thresholds.circularity before and after W + N/3
+SOAK_ENV = {"pipelined": {"VPTPU_PIPELINE": "1", "VPTPU_STAGGERED": "0"},
+            "staggered": {"VPTPU_PIPELINE": "0", "VPTPU_STAGGERED": "1"}}
+# launches in every frame-set, plain or dense: warp (B1 twice a camera),
+# score-first, B3 at the row stage's m (6 plain, 19 dense), B4 ring + tracked
+SOAK_LAUNCHES = {"band_pass": 8, "blob_response_fused": 4, "row_topk": 4,
+                 "query_select_topk": 8, "corner_stack": 0, "gather_corners": 0,
+                 "circularity_fused": 0, "combo_chain": 0, "resample_packed": 0,
+                 "band_warp": 0, "row_topk_blk": 0}
+SOAK_DENSE_TIER = ([19], [512])  # a dense frame-set's B3 m and B4 ring Q (the bench's)
+SOAK_BLOCKS, SOAK_BYTES = 8, 1 << 20  # allowed growth of live blocks and bytes
+SOAK_HANDLES = 2  # allowed change of threads and of open file descriptors
+SOAK_FOUND = 0.98  # share of a camera's frames with every planted robot (ball) found
+SOAK_REKEYS = ("batched_step_host_tracked", "make_resample_grids", "pack_field_marks")
+# The JAX package on the soak's frames, on the CPU (tests/jax_soak_witness.py
+# --camera C --frames 60: warp, the tracked prior from the previous frame):
+# for each pass over the bank, "1" at entry k where it named every planted
+# robot within 30 mm ("ids") or found the ball within 40 mm ("ball"); the
+# port on the CPU gave the same in every frame. The last pass listed
+# repeated to the end of the 60 frames and stands for every later one.
+JAX_SOAK_FOUND = {
+    0: {"ids": ["111110111110"],
+        "ball": ["111111010100", "001001010100"]},
+    1: {"ids": ["111110111110"],
+        "ball": ["111111111010", "001101111010", "101011111010", "111011111010"]},
+    2: {"ids": ["111111111111"],
+        "ball": ["111111111011", "111011111011"]},
+    3: {"ids": ["111110111110"],
+        "ball": ["111110001100", "000001100010", "111011100010"]},
+}
+
+
+def jax_soak_found(c: int, number: int) -> dict:
+    """Whether the JAX package named every planted robot of camera c (and
+    found its ball) in the soak's frame ``number`` (1, 2, ...)."""
+    found = JAX_SOAK_FOUND[c]
+    k, loop = (number - 1) % SOAK_BANK, (number - 1) // SOAK_BANK
+    return {key: found[key][min(loop, len(found[key]) - 1)][k] == "1" for key in found}
+
+
+def soak_scenes(cams, base) -> list:
+    """Each camera's SOAK_BANK scenes from the bench rig's cameras and
+    scenes (``bench.py build_rig``, dense): at entry k each robot and the
+    ball move by SOAK_RADIUS (cos, sin) of 2 pi k / SOAK_BANK (a robot's
+    loop centre pulled in to keep SOAK_EDGE inside the camera's visible
+    extent) and turn by the same angle; the entries in SOAK_DENSE keep the
+    clutter that lies SOAK_CLEAR from every robot, the others drop it."""
+    import numpy as np
+
+    from vision_processor_tpu_torch.io.synthetic import Scene, SceneBall, SceneBot
+
+    scenes = []
+    for c, ((_, persp), scene) in enumerate(zip(cams, base)):
+        ext = persp.visible_field_extent
+        pad = SOAK_RADIUS + SOAK_EDGE
+        centres = [(float(np.clip(b.x, ext[0] + pad, ext[1] - pad)),
+                    float(np.clip(b.y, ext[2] + pad, ext[3] - pad))) for b in scene.bots]
+        ball, clutter = scene.balls[0], scene.balls[1:]
+        cam_scenes = []
+        for k in range(SOAK_BANK):
+            a = 2 * math.pi * k / SOAK_BANK
+            dx, dy = SOAK_RADIUS * math.cos(a), SOAK_RADIUS * math.sin(a)
+            bots = [SceneBot(b.bot_id, b.team, x + dx, y + dy, b.orientation + a)
+                    for b, (x, y) in zip(scene.bots, centres)]
+            kept = [SceneBall(ball.x + dx, ball.y + dy)]
+            if min(math.hypot(b.x - kept[0].x, b.y - kept[0].y) for b in bots) < SOAK_CLEAR:
+                fail(f"soak: camera {c}'s ball comes within {SOAK_CLEAR} mm of a robot")
+            if k in SOAK_DENSE:
+                kept += [s for s in clutter if all(math.hypot(s.x - b.x, s.y - b.y) >= SOAK_CLEAR
+                                                   for b in bots)]
+            cam_scenes.append(Scene(bots=bots, balls=kept, noise_sigma=scene.noise_sigma,
+                                    seed=c * SOAK_BANK + k))
+        scenes.append(cam_scenes)
+    return scenes
+
+
+def soak_bank(torch) -> dict:
+    """The bench's dense rig (``bench.py build_rig``, 1900 extra blobs a
+    camera, factor 1.25) as the bank of ``soak_scenes``, rendered in
+    threads (numpy releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from vision_processor_tpu_torch.bench import build_rig
+    from vision_processor_tpu_torch.io.synthetic import render_raw
+
+    rig = build_rig(N_CAMS, dense=True, dense_blobs=1900, resampling_factor=1.25,
+                    return_scenes=True, raws=np.zeros((N_CAMS, 1080, 1920), np.uint8),
+                    device=torch.device("cuda", 0))
+    geometry, cams = rig[7], rig[8]
+    scenes = soak_scenes(cams, rig[9])
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        raws = [list(pool.map(lambda s, m=model: render_raw(m, geometry.field, s, "RGGB"),
+                              cam_scenes))
+                for (model, _), cam_scenes in zip(cams, scenes)]
+    width, height = (int(v) for v in cams[0][0].size)
+    print(f"soak bank: {N_CAMS} cameras x {SOAK_BANK} frames (dense at {SOAK_DENSE}, "
+          f"{[len(scenes[c][SOAK_DENSE[0]].balls) - 1 for c in range(N_CAMS)]} clutter blobs) "
+          f"rendered in {time.perf_counter() - t0:.1f} s")
+    return {"geometry": geometry, "scenes": scenes, "raws": raws, "size": (width, height),
+            "packet": fleet_packet(geometry, range(N_CAMS))}
+
+
+def _soak_probe(torch) -> dict:
+    """The device's allocator and the host's handles, now."""
+    torch.cuda.synchronize()
+    stats = torch.cuda.memory_stats()
+    return {"blocks": stats["allocation.all.current"],
+            "allocated": torch.cuda.memory_allocated(),
+            "reserved": torch.cuda.memory_reserved(),
+            "max_allocated": torch.cuda.max_memory_allocated(),
+            "alloc_retries": stats.get("num_alloc_retries", 0),
+            "ooms": stats.get("num_ooms", 0),
+            "threads": threading.active_count(),
+            "fds": len(os.listdir("/proc/self/fd"))}
+
+
+def _rss_kb() -> float:
+    with open("/proc/self/statm") as fh:
+        return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e3
+
+
+class LogCount(logging.Handler):
+    """Sends every log record of a block to ``path`` in place of stderr and
+    counts them by level; keeps the ERROR ones."""
+
+    def __init__(self, path: Path):
+        super().__init__(level=logging.DEBUG)
+        self.path, self.levels, self.errors = path, {}, []
+
+    def emit(self, record):
+        self.levels[record.levelname] = self.levels.get(record.levelname, 0) + 1
+        if record.levelno >= logging.ERROR:
+            self.errors.append(self.format(record))
+
+    def __enter__(self):
+        root = logging.getLogger()
+        self.saved = list(root.handlers)
+        self.file = logging.FileHandler(self.path, mode="w")
+        self.file.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(name)s "
+                                                 "%(message)s"))
+        for h in self.saved:
+            root.removeHandler(h)
+        root.addHandler(self.file)
+        root.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        root = logging.getLogger()
+        root.removeHandler(self)
+        root.removeHandler(self.file)
+        self.file.close()
+        for h in self.saved:
+            root.addHandler(h)
+
+
+def soak_found(c: int, frames: list) -> dict:
+    """Camera c's detection frames on the soak's wire (number, bank entry,
+    each planted robot's error by id and by position, the ball's error,
+    ...) counted: all frames; with every planted robot within 30 mm by
+    position ("robots"); where the JAX package named every one by id
+    ("jax_ids"), and of those where the port did too ("ids"); the same
+    for the ball within 40 mm ("jax_ball", "ball"); and the frames where
+    the port's outcome equals the JAX package's ("ids_agree",
+    "ball_agree")."""
+    out = dict.fromkeys(("frames", "robots", "jax_ids", "ids", "ids_agree", "jax_ball",
+                         "ball", "ball_agree"), 0)
+    for number, _, errs, near, berr, *_ in frames:
+        want = jax_soak_found(c, number)
+        ids, ball = max(errs) <= 30.0, berr <= 40.0
+        for key, hit in (("frames", True), ("robots", max(near) <= 30.0),
+                         ("jax_ids", want["ids"]), ("ids", want["ids"] and ids),
+                         ("ids_agree", want["ids"] == ids), ("jax_ball", want["ball"]),
+                         ("ball", want["ball"] and ball), ("ball_agree", want["ball"] == ball)):
+            out[key] += bool(hit)
+    return out
+
+
+def _soak_run(torch, recorder, bank: dict, mode: str, n: int) -> dict:
+    """One ``MultiCamApp`` over the bank (``run_soak`` says what it checks)."""
+    from contextlib import ExitStack
+
+    import numpy as np
+    import yaml
+
+    from vision_processor_tpu_torch.app import multicam_app as MA
+    from vision_processor_tpu_torch.io.camera import CameraDriver, RawFrame, register_driver
+    from vision_processor_tpu_torch.net.udp import UDPSocket
+    from vision_processor_tpu_torch.ops import blob as OB
+    from vision_processor_tpu_torch.ops import cuda as K
+    from vision_processor_tpu_torch.proto import SSL_WrapperPacket
+
+    total = SOAK_WARM + n
+    reload_at = SOAK_WARM + n // 3
+    outage = range(SOAK_WARM + n // 2, SOAK_WARM + n // 2 + SOAK_OUTAGE)
+    raws, scenes, (width, height) = bank["raws"], bank["scenes"], bank["size"]
+    entry = {id(raw): k for cam in raws for k, raw in enumerate(cam)}
+    t_zero = time.perf_counter()
+
+    class Camera(CameraDriver):
+        """Camera c's bank in a loop for ``total`` reads, on the host clock;
+        camera 1 delivers nothing during the outage."""
+
+        def __init__(self, c):
+            self.c, self.i = c, 0
+
+        @property
+        def fmt(self):
+            return "RGGB"
+
+        def expected_frametime(self):
+            return 0.01
+
+        def get_time(self):
+            return time.perf_counter() - t_zero
+
+        def read_image(self):
+            if self.i >= total:
+                return None
+            i, self.i = self.i, self.i + 1
+            if self.c == 1 and i in outage:
+                return None
+            return RawFrame(data=raws[self.c][i % SOAK_BANK], fmt="RGGB", width=width,
+                            height=height)
+
+    register_driver("SMOKE_SOAK", lambda cam_cfg: Camera(int(cam_cfg.path)))
+    workdir = OUT / "soak" / mode
+    workdir.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for c in range(N_CAMS):
+        path = workdir / f"config{c}.yml"
+        path.write_text(yaml.dump({
+            "cam_id": c, "bot_heights_file": str(workdir / "no-heights.yml"),
+            "camera": {"driver": "SMOKE_SOAK", "path": str(c)},
+            "geometry": {"camera_amount": N_CAMS},
+            "network": {"vision_ip": SOAK_GROUP, "vision_port": SOAK_PORT,
+                        "gc_ip": SOAK_GROUP, "gc_port": SOAK_GC_PORT},
+            "stream": {"active": False}, "debug": {"wait_for_geometry": True},
+            "thresholds": {"blobs": 2000, "circularity": SOAK_CIRC[0],
+                           "resampling_factor": 1.25},
+        }))
+        paths.append(path)
+    by_cam = {c: [] for c in range(N_CAMS)}
+    seen = {"geometry": 0}
+
+    def frame_errors(d) -> tuple:
+        """A detection frame as it arrives, kept small (the wire's protos
+        would grow the host's memory with the run): its number, bank entry,
+        each planted robot's error by id and by position alone, the ball's
+        error, the robots and balls sent."""
+        k = (d.frame_number - 1) % SOAK_BANK
+        scene = scenes[d.camera_id][k]
+        _, errs, berr = detection_errors(scene, SimpleNamespace(detection=d))
+        emitted = [(r.x, r.y) for r in (*d.robots_yellow, *d.robots_blue)]
+        near = [min((math.hypot(x - b.x, y - b.y) for x, y in emitted), default=float("inf"))
+                for b in scene.bots]
+        return (d.frame_number, k, [round(e, 2) for e in errs], [round(e, 2) for e in near],
+                round(berr, 2), len(emitted), len(d.balls))
+
+    class Wire(UDPSocket):
+        def _parse(self, data):
+            got = SSL_WrapperPacket()
+            got.ParseFromString(data)
+            if got.HasField("detection"):
+                by_cam[got.detection.camera_id].append(frame_errors(got.detection))
+            if got.HasField("geometry"):
+                seen["geometry"] += 1
+
+    packet = bank["packet"]
+    state = {"i": 0}
+    stop = threading.Event()
+    wire = Wire(SOAK_GROUP, SOAK_PORT)
+
+    def send_geometry():
+        wire.sock.sendto(packet, wire.address)
+
+    def publish():  # until the fleet has run 2 frame-sets; then frame-locked churn
+        while not stop.is_set() and state["i"] < 2:
+            send_geometry()
+            stop.wait(0.05)
+
+    publisher = threading.Thread(target=publish, daemon=True)
+    rekeys = {name: CallCounts(MA, name, key=lambda out: state["i"]) for name in SOAK_REKEYS}
+    probes, walls, rss, per_set, fleet = {}, [], [], [], {}
+    gc.collect()  # an earlier app's reference cycles (its wrapped methods)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    probes["start"] = _soak_probe(torch)
+    cwd = os.getcwd()
+    t0 = time.perf_counter()
+    try:
+        publisher.start()
+        while seen["geometry"] == 0:  # the group loops back to this host
+            if time.perf_counter() - t0 > 10.0:
+                fail(f"soak ({mode}): no datagram came back on {SOAK_GROUP}:{SOAK_PORT}")
+            time.sleep(0.01)
+        os.chdir(workdir)
+        with Env(SOAK_ENV[mode]), LogCount(workdir / "log.txt") as logs, BuildLog(K) as builds, \
+                CallCounts(OB, "compaction_tier", key=tuple) as tiers, ExitStack() as stack:
+            for counts in rekeys.values():
+                stack.enter_context(counts)
+            app = MA.MultiCamApp([str(p) for p in paths], device=torch.device("cuda", 0))
+            if app.staggered != (mode == "staggered") or app.pipeline != (mode == "pipelined"):
+                fail(f"soak ({mode}): the app runs pipeline={app.pipeline} "
+                     f"staggered={app.staggered}")
+            inner, close = app.dispatch_frames, app.close
+
+            def dispatch(frames, now, tracked=None):
+                i = state["i"]
+                walls.append(time.perf_counter())
+                rss.append(_rss_kb())
+                if i % 3 == 0:
+                    send_geometry()  # frame-locked churn, tests/test_soak.py:248-257
+                if i == reload_at:
+                    cfg = yaml.safe_load(paths[0].read_text())
+                    cfg["thresholds"]["circularity"] = SOAK_CIRC[1]
+                    paths[0].write_text(yaml.dump(cfg))
+                if i == SOAK_WARM:
+                    probes["warm"] = _soak_probe(torch)
+                kinds = {"dense" if entry[id(f.data)] in SOAK_DENSE else "plain"
+                         for f in frames}
+                kind = kinds.pop() if len(kinds) == 1 else "mixed"
+                # one dense frame-set's kernel inputs for phase 8, kept from
+                # before the warm-up's reading to the end of the run
+                record = (kind == "dense" and i >= SOAK_WARM - SOAK_BANK
+                          and "dense" not in fleet)
+                if record:
+                    for kept in recorder.calls.values():
+                        kept.clear()
+                    recorder.on = True
+                launched = dict(K.LAUNCHES)
+                try:
+                    out = inner(frames, now, tracked)
+                finally:
+                    recorder.on = False
+                    state["i"] += 1
+                per_set.append((kind, {k: K.LAUNCHES[k] - launched[k] for k in launched}))
+                if record:
+                    fleet["dense"] = {name: list(recorder.calls[name])
+                                      for name in ("row_topk", "query_select_topk")}
+                    for kept in recorder.calls.values():
+                        kept.clear()
+                return out
+
+            def closing():
+                probes["end"] = _soak_probe(torch)
+                fleet["params"] = app._fleet_params()
+                close()
+
+            def watchdog():  # a run that outlives its time is stopped and fails
+                if not stop.wait(max(300.0, 4.0 * total)):
+                    state["timed_out"] = True
+                    app.stop()
+
+            app.dispatch_frames = builds.frame(dispatch, "frame-set")
+            app.close = closing
+            threading.Thread(target=watchdog, daemon=True).start()
+            t_run = time.perf_counter()
+            app.run()
+            run_s = time.perf_counter() - t_run
+            time.sleep(0.3)  # the last datagrams
+    finally:
+        os.chdir(cwd)
+        stop.set()
+        publisher.join()
+        wire.close()
+    label = f"soak ({mode})"
+    if state.get("timed_out"):
+        fail(f"{label}: stopped after {state['i']} of {total} frame-sets")
+    if state["i"] != total or "end" not in probes or "warm" not in probes:
+        fail(f"{label}: {state['i']} frame-sets dispatched, expected {total}")
+    if "dense" not in fleet:
+        fail(f"{label}: no dense frame-set in the warm-up's last {SOAK_BANK}")
+
+    # every reading first, then every gate, so that one run shows them all
+    rekeyed = {name: dict(sorted(c.by.items())) for name, c in rekeys.items()}
+    warm, end = probes["warm"], probes["end"]
+    got = {c: len(by_cam[c]) for c in range(N_CAMS)}
+    dark = {i + 1 for i in outage}
+    found, noise, order = {}, [], {}
+    for c in range(N_CAMS):
+        numbers = [f[0] for f in by_cam[c]]
+        order[c] = all(b > a for a, b in zip(numbers, numbers[1:])) and not (
+            c == 1 and dark & set(numbers))
+        found[c] = soak_found(c, by_cam[c])
+        noise += [n_robots - sum(e <= 30.0 for e in near)
+                  for _, k, _, near, _, n_robots, _ in by_cam[c] if k in SOAK_DENSE]
+    (workdir / "wire.json").write_text(json.dumps(by_cam))
+    recovered = [max(f[3]) for f in by_cam[1] if f[0] > max(dark)][:2]
+    circ = [float(v) for v in fleet["params"]["min_circularity"]]
+    dense_m = sorted({m for (_, m), _ in fleet["dense"]["row_topk"]})
+    ring_q = sorted({q.shape[0] for (q, *_), kw in fleet["dense"]["query_select_topk"]
+                     if kw["by_rank"]})
+    q = n // 4
+    steps = [1e3 * (b - a) for a, b in zip(walls, walls[1:])][SOAK_WARM:]
+    quarters = {"first": steps[:q], "last": steps[-q:]}
+    sums = {}
+    for part, rng in (("first", range(SOAK_WARM, SOAK_WARM + q)),
+                      ("last", range(total - q, total))):
+        for kind in ("plain", "dense"):
+            sets = [per_set[i][1] for i in rng if per_set[i][0] == kind]
+            sums[f"{part} quarter, {kind}"] = {
+                "frame-sets": len(sets),
+                **{k: sum(s[k] for s in sets) for k in ("band_pass", "blob_response_fused",
+                                                       "row_topk", "query_select_topk")}}
+    late = np.asarray(rss[len(rss) - n // 2:], dtype=np.float64)
+    slope = float(np.polyfit(np.arange(len(late)), late, 1)[0])
+    out = {
+        "frame_sets": total, "warm": SOAK_WARM, "n": n, "run_s": run_s,
+        "reload_at": reload_at, "outage": [outage[0], outage[-1]],
+        "probes": probes, "rekeys": rekeyed, "builds": builds.builds,
+        "tiers": {f"{kind} m={m}": c for (kind, m), c in sorted(tiers.by.items())},
+        "wall_ms": {part: {"p50": float(np.percentile(xs, 50)),
+                           "p95": float(np.percentile(xs, 95)), "n": len(xs)}
+                    for part, xs in quarters.items()},
+        "launch_sums": sums, "found": found, "recovered_max_err_mm": recovered,
+        "noise_bots_per_dense_frame": float(np.mean(noise)) if noise else None,
+        "rss_slope_kb_per_frame_set": slope, "log_levels": logs.levels,
+        "min_circularity": circ, "dense_m": dense_m, "dense_ring_q": ring_q,
+    }
+    print(f"{label}: {total} frame-sets ({SOAK_WARM} warm-up) in {run_s:.1f} s; churn every "
+          f"3rd, reload at {reload_at}, camera 1 dark {outage[0]}-{outage[-1]}; kernel builds "
+          f"{builds.builds}; step, grids, marks built at frame-sets "
+          f"{ {k: sorted(v) for k, v in rekeyed.items()} }; compaction tiers {out['tiers']}")
+    for part in ("start", "warm", "end"):
+        p = probes[part]
+        print(f"{label} {part}: blocks {p['blocks']}, memory_allocated {p['allocated']}, "
+              f"memory_reserved {p['reserved']}, max_memory_allocated {p['max_allocated']}, "
+              f"alloc retries {p['alloc_retries']}, OOMs {p['ooms']}, threads {p['threads']}, "
+              f"fds {p['fds']}")
+    print(f"{label}: frame-set wall p50/p95 ms first quarter "
+          f"{out['wall_ms']['first']['p50']:.3f}/{out['wall_ms']['first']['p95']:.3f}, last "
+          f"quarter {out['wall_ms']['last']['p50']:.3f}/{out['wall_ms']['last']['p95']:.3f}; "
+          f"RSS slope over the late half {slope:.3f} KB a frame-set; frames found {found}; "
+          f"camera 1 after the outage, worst robot by position {recovered} mm; noise "
+          f"bots a dense frame {out['noise_bots_per_dense_frame']}; log records {logs.levels}; "
+          f"min_circularity {circ}")
+    print(f"{label}: launches {sums}; dense frame-set B3 m {dense_m}, ring Q {ring_q}")
+
+    bad = []
+    # (a) builds: none after the first frame-set
+    late = [b for b in builds.builds if b[0] not in ("set-up", "frame-set 1")]
+    if late:
+        bad.append(f"kernels built after the first frame-set: {late}")
+    # (b) re-keys: none after the warm-up
+    late = {name: [i for i in by if i >= SOAK_WARM] for name, by in rekeyed.items()}
+    if any(late.values()):
+        bad.append(f"rebuilt after the warm-up, at frame-sets {late}")
+    # (c) device memory, (d) host handles
+    if end["blocks"] > warm["blocks"] + SOAK_BLOCKS:
+        bad.append(f"live blocks {warm['blocks']} -> {end['blocks']}")
+    if end["allocated"] > warm["allocated"] + SOAK_BYTES:
+        bad.append(f"memory_allocated {warm['allocated']} -> {end['allocated']}")
+    if end["alloc_retries"] or end["ooms"]:
+        bad.append(f"{end['alloc_retries']} allocation retries, {end['ooms']} OOMs")
+    for k in ("threads", "fds"):
+        if abs(end[k] - warm[k]) > SOAK_HANDLES:
+            bad.append(f"{k} {warm[k]} -> {end[k]}")
+    # (e) the wire
+    want = {c: total - (SOAK_OUTAGE if c == 1 else 0) for c in range(N_CAMS)}
+    if got != want:
+        bad.append(f"detection frames per camera {got}, expected {want}")
+    if not all(order.values()):
+        bad.append(f"frame numbers not increasing or sent in the outage: {order}")
+    # every planted robot by position (the bench's recall) in every frame;
+    # every planted robot by id, and the ball, in every frame where the JAX
+    # package finds them on the same frames (a dense frame-set teaches the
+    # colour chain the clutter in both packages: ROADMAP section 3); and
+    # the port's outcome the JAX package's, frame by frame
+    for c, f in found.items():
+        for hit, of in (("robots", "frames"), ("ids", "jax_ids"), ("ball", "jax_ball"),
+                        ("ids_agree", "frames"), ("ball_agree", "frames")):
+            if f[hit] < SOAK_FOUND * f[of]:
+                bad.append(f"camera {c}: {hit} in {f[hit]} of {f[of]} {of} frames")
+    if not any(e <= 30.0 for e in recovered):
+        bad.append(f"camera 1 missed a robot by position in the 2 frame-sets after the "
+                   f"outage: {recovered} mm")
+    if logs.errors:
+        bad.append(f"{len(logs.errors)} ERROR records, the first: {logs.errors[0]}")
+    if circ != [SOAK_CIRC[1]] + [SOAK_CIRC[0]] * (N_CAMS - 1):
+        bad.append(f"min_circularity per camera {circ} after the reload")
+    # (f) launches
+    for i, (kind, launched) in enumerate(per_set):
+        wrong = {k: (launched[k], v) for k, v in SOAK_LAUNCHES.items() if launched[k] != v}
+        if wrong:
+            bad.append(f"frame-set {i} ({kind}) launched (got, expected) {wrong}")
+            break
+    if (dense_m, ring_q) != SOAK_DENSE_TIER:
+        bad.append(f"the dense frame-set ran B3 at m {dense_m} and B4's ring at Q {ring_q}, "
+                   f"expected {SOAK_DENSE_TIER}")
+    if bad:
+        fail(f"{label}: " + "; ".join(bad))
+    out["dense_calls"] = fleet["dense"]
+    return out
+
+
+def run_soak(torch, recorder, card: str, frames: dict) -> dict:
+    """The port's counterpart of tests/test_soak.py on the card: the real
+    ``MultiCamApp`` (4 cameras, 1080p RGGB, max_blobs 2000, factor 1.25,
+    "auto" -> warp, on-device finishing) over the bank of ``soak_bank``,
+    SOAK_WARM + N frame-sets in each dispatch mode of ``frames`` (mode ->
+    N), each as its own app with a synthetic driver, a geometry publisher
+    and a wire recorder on SOAK_GROUP. Events: the geometry packet every
+    3rd frame-set, camera 0's ``thresholds.circularity`` rewritten at W +
+    N/3 (the app's hot reload), camera 1 dark for SOAK_OUTAGE frame-sets at
+    W + N/2. Fails unless (a) no kernel is built after the first frame-set;
+    (b) after the warm-up no step, resample grid or field marks is built
+    again; (c) from warm-up to the end the allocator's live blocks grow by
+    at most SOAK_BLOCKS and ``memory_allocated`` by at most SOAK_BYTES,
+    with no allocation retry or OOM; (d) threads and open descriptors
+    within SOAK_HANDLES; (e) every camera sends one detection frame a
+    frame-set (camera 1 none in its outage), frame numbers increasing,
+    every planted robot within 30 mm by position in SOAK_FOUND of its
+    frames, and with its id in SOAK_FOUND of the frames where the JAX
+    package names them all on the same frames, its ball within 40 mm in
+    SOAK_FOUND of the frames where the JAX package finds it, and the
+    port's outcome (ids, ball) the JAX package's in SOAK_FOUND of its
+    frames (``soak_found``: after a dense frame-set both packages lose
+    the ball in some frames; ROADMAP section 3), camera 1 its robots again within 2 frame-sets of
+    the outage, no ERROR record, and the reload reaches camera 0 alone;
+    (f) every frame-set launches B1 8, B2 4, B3 4 and B4 8 times, the
+    dense ones B3 at m = 19 and B4's ring at Q = 512 (one such frame-set's
+    calls kept for phase 8). Walls, memory, RSS slope and noise are
+    printed."""
+    phase("soak: MultiCamApp over hundreds of frame-sets, both dispatch modes")
+    t0 = time.perf_counter()
+    bank = soak_bank(torch)
+    runs = {mode: _soak_run(torch, recorder, bank, mode, n) for mode, n in frames.items()}
+    wall = time.perf_counter() - t0
+    print(f"soak phase: {wall:.1f} s ({card})")
+    dense_calls = next(iter(runs.values()))["dense_calls"]
+    return {"modes": {m: {k: v for k, v in r.items() if k != "dense_calls"}
+                      for m, r in runs.items()},
+            "seconds": wall, "card": card, "dense_calls": dense_calls}
 
 
 def _e1_inputs(torch):
@@ -3083,14 +3662,14 @@ def _same_slots(torch, got, want) -> bool:
     return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def _check_b3(torch, calls, calls_f1, before, calls_dense=()):
+def _check_b3(torch, calls, calls_f1, before, calls_dense=None):
     """Every slot, exhausted ones included, equal to select_m's (the
     Pallas _select_m) and, where ``before`` has it, to the other
     checkout's B3; values and valid indices equal to the plain version's;
     on slice 1's map at its m and at 19 (the m-lane tier's), slice 4's
-    factor-1.0 map at its m and at 16, the bench's dense frame-set's map at
-    each m it ran (``calls_dense``: the m-lane tier), and a tie/exhausted
-    map at every m of TOPK_MS. Timed at those path shapes, in turns with
+    factor-1.0 map at its m and at 16, each dense frame-set's map at each m
+    it ran (``calls_dense``: source -> calls; the m-lane tier), and a
+    tie/exhausted map at every m of TOPK_MS. Timed at those path shapes, in turns with
     the other checkout's B3."""
     import vision_processor_tpu_torch.ops.topk as T
 
@@ -3108,11 +3687,12 @@ def _check_b3(torch, calls, calls_f1, before, calls_dense=()):
             (f"slice 1 {tuple(masked.shape)} m=19", masked, 19),
             (f"factor 1.0 {tuple(masked1.shape)} m={mm1}", masked1, mm1),
             (f"factor 1.0 {tuple(masked1.shape)} m=16", masked1, 16)]
-    seen_m = set()
-    for (xd, md), _ in calls_dense:
-        if md not in seen_m:
-            seen_m.add(md)
-            path.append((f"bench dense {tuple(xd.shape)} m={md}", xd, md))
+    for source, dense in (calls_dense or {}).items():
+        seen_m = set()
+        for (xd, md), _ in dense:
+            if md not in seen_m:
+                seen_m.add(md)
+                path.append((f"{source} {tuple(xd.shape)} m={md}", xd, md))
     cases = path + [(f"ties/exhausted m={m}", x, m) for m in TOPK_MS]
     err = 0.0
     for label, xx, m in cases:
@@ -3162,13 +3742,13 @@ def _query_bound(q, k, m):
     return 12 * q + 12 * k + 8 * q * m, 6 * q * k
 
 
-def _check_b4(torch, calls, before, calls_dense=()):
+def _check_b4(torch, calls, before, calls_dense=None):
     """Every slot, exhausted ones included, equal to the plain version's
     (select_m over the materialized scores) and, where ``before`` has it,
     to the other checkout's B4; on slice 1's ring and tracked calls, the
     ring's inputs at Q = 512 (the dense window's anchors: the 128 queries
-    at four offsets) and at every m of TOPK_MS, the bench's dense
-    frame-set's first ring call (``calls_dense``: Q = 512, its own blob
+    at four offsets) and at every m of TOPK_MS, each dense frame-set's
+    first ring call (``calls_dense``: source -> calls; Q = 512, its own blob
     table) and tracked call, and a tie/exhausted case. Timed per frame
     (ring + tracked) and per call at Q = 128, 160 and 512 and on the dense
     calls, in turns with the other checkout's B4."""
@@ -3189,11 +3769,13 @@ def _check_b4(torch, calls, before, calls_dense=()):
               f"m={c[4]} {'rank' if c[5] else '-d2'}", c) for c in frame]
     cases.append((f"ring at Q=512 m={ring[4]}", q512))
     dense = {}
-    for (qxy, r2, bxy, rank), kw in calls_dense:
-        dense.setdefault(kw["by_rank"], (*(t.contiguous() for t in (qxy, r2, bxy, rank)),
-                                         kw["m"], kw["by_rank"]))
-    cases += [(f"bench dense {'ring' if c[5] else 'tracked'} Q={c[0].shape[0]} "
-               f"K={c[2].shape[0]} m={c[4]}", c) for c in dense.values()]
+    for source, dense_calls in (calls_dense or {}).items():
+        for (qxy, r2, bxy, rank), kw in dense_calls:
+            dense.setdefault((source, kw["by_rank"]),
+                             (*(t.contiguous() for t in (qxy, r2, bxy, rank)), kw["m"],
+                              kw["by_rank"]))
+    cases += [(f"{source} {'ring' if c[5] else 'tracked'} Q={c[0].shape[0]} "
+               f"K={c[2].shape[0]} m={c[4]}", c) for (source, _), c in dense.items()]
     n_timed = len(frame) + 1 + len(dense)
     cases += [(f"ring m={m} {'rank' if by else '-d2'}", (*ring[:4], m, by))
               for m in TOPK_MS for by in (True, False)]
@@ -3767,12 +4349,12 @@ def _check_e5(torch, contract, before):
 
 
 def check_kernels(torch, s1: dict, s2: dict, s3: dict, s4: dict, s4f1: dict,
-                  contracts: dict, bench: dict, before) -> list:
+                  contracts: dict, bench: dict, soak: dict, before) -> list:
     """Each kernel on the last frame's inputs of the slice whose path it
     belongs to: B1-B4 slice 1's, B5-B7 slice 2's, E4 slice 3's, E2/E3 slice
     4's; E1 and E5 on their contract run's inputs; B2 and B5 also on slice
-    4's factor-1.0 map, B3 and B4 also on the bench's dense frame-set,
-    beside the other checkout's where ``before`` has it."""
+    4's factor-1.0 map, B3 and B4 also on the bench's and the soak's dense
+    frame-sets, beside the other checkout's where ``before`` has it."""
     phase("kernels vs plain")
     one = torch.zeros(1, device="cuda")
     floor = time_fn(torch, one.zero_)
@@ -3784,9 +4366,11 @@ def check_kernels(torch, s1: dict, s2: dict, s3: dict, s4: dict, s4f1: dict,
         ("B1", _check_b1(torch, c1["band_pass"])),
         ("B2", _check_b2(torch, c1["blob_response_fused"], b2_f1, before)),
         ("B3", _check_b3(torch, c1["row_topk"], s4f1["calls"]["row_topk"], before,
-                         bench["dense_calls"]["row_topk"])),
+                         {"bench dense": bench["dense_calls"]["row_topk"],
+                          "soak dense": soak["dense_calls"]["row_topk"]})),
         ("B4", _check_b4(torch, c1["query_select_topk"], before,
-                         bench["dense_calls"]["query_select_topk"])),
+                         {"bench dense": bench["dense_calls"]["query_select_topk"],
+                          "soak dense": soak["dense_calls"]["query_select_topk"]})),
         ("B5", _check_b5(torch, c2["circularity_fused"], b2_f1, before)),
         ("B6", _check_b6(torch, c2["combo_chain"], before)),
         ("B7", _check_b7(torch, c2["gather_corners"])),
@@ -3806,8 +4390,13 @@ def main() -> None:
                         help="another checkout of the repository whose B2-B6, E1 and E5 "
                              "are timed in turns with this one's (B3, B4, B6 and E5 held "
                              "equal to this one's in every slot)")
+    parser.add_argument("--soak-frames", type=int, default=SOAK_FRAMES["pipelined"],
+                        help="N, the pipelined soak run's frame-sets after its warm-up "
+                             f"(default {SOAK_FRAMES['pipelined']}; the staggered run keeps "
+                             f"{SOAK_FRAMES['staggered']})")
     args = parser.parse_args()
     OUT = args.out.resolve()
+    soak_frames = dict(SOAK_FRAMES, pipelined=args.soak_frames)
 
     if not (ROOT / "vision_processor_tpu_torch" / "csrc").is_dir():
         fail("run from a checkout of the repository: vision_processor_tpu_torch/ is missing")
@@ -3847,6 +4436,7 @@ def main() -> None:
     mesh = run_camera_mesh(torch, recorder, rig, card)
     processes = run_processes(torch, rig, replay, card)
     bench = run_bench(torch, recorder)
+    soak = run_soak(torch, recorder, card, soak_frames)
     contracts = run_contracts(torch)
     for label, s, unit in (("slice 1 (warp, score-first)", s1, "frame"),
                            ("slice 2 (gather, circ-first, fused combo)", s2, "frame"),
@@ -3873,7 +4463,7 @@ def main() -> None:
                                        "frame-set")
         s4["profile"] = profile_frames(torch, s4["run"], STAGES_SLICE4, "slice 4",
                                        "frame-set")
-    results = check_kernels(torch, s1, s2, s3, s4, s4f1, contracts, bench, before)
+    results = check_kernels(torch, s1, s2, s3, s4, s4f1, contracts, bench, soak, before)
     # E3 computes E2's function: one kernel, one measurement, two rows
     e2 = dict(results)["E2"]
     results.insert([row for row, _ in results].index("E4"),
@@ -3919,6 +4509,7 @@ def main() -> None:
         "camera drivers": drivers,
         "processes": processes,
         "bench": {k: v for k, v in bench.items() if k != "dense_calls"},
+        "soak": {k: v for k, v in soak.items() if k != "dense_calls"},
     }, indent=1))
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))

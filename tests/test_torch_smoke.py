@@ -124,3 +124,76 @@ def test_counting_runner_passes_argv_and_writes_the_counts(smoke, tmp_path):
     proc = subprocess.run([sys.executable, str(runner), str(launcher), str(counts), "--bad"],
                           capture_output=True, text=True, timeout=120, cwd=str(tmp_path))
     assert proc.returncode == 2 and "--bad" in proc.stderr
+
+
+def test_soak_scenes_loop_with_clutter_in_the_dense_entries(smoke):
+    """The soak's bank (``soak_scenes`` over the bench's dense rig, not
+    rendered): each camera's robots and ball move by SOAK_RADIUS mm on one
+    loop of SOAK_BANK entries; only the SOAK_DENSE entries hold clutter,
+    SOAK_CLEAR mm or more from every robot; the ball as well."""
+    import math
+
+    from vision_processor_tpu_torch.bench import build_rig
+
+    rig = build_rig(smoke.N_CAMS, dense=True, dense_blobs=1900, resampling_factor=1.25,
+                    return_scenes=True, raws=np.zeros((smoke.N_CAMS, 1080, 1920), np.uint8),
+                    device="cpu")
+    scenes = smoke.soak_scenes(rig[8], rig[9])
+    assert len(scenes) == smoke.N_CAMS
+    for base, bank in zip(rig[9], scenes):
+        assert len(bank) == smoke.SOAK_BANK
+        for k, scene in enumerate(bank):
+            a = 2 * math.pi * k / smoke.SOAK_BANK
+            step = smoke.SOAK_RADIUS * np.array([math.cos(a), math.sin(a)])
+            for bot, first in zip(scene.bots, bank[0].bots):
+                assert np.allclose([bot.x - first.x, bot.y - first.y],
+                                   step - [smoke.SOAK_RADIUS, 0.0], atol=1e-6)
+                assert bot.orientation == pytest.approx(first.orientation + a)
+            ball = scene.balls[0]
+            assert np.allclose([ball.x - base.balls[0].x, ball.y - base.balls[0].y], step)
+            clutter = scene.balls[1:]
+            assert bool(clutter) == (k in smoke.SOAK_DENSE)
+            assert len(clutter) > 1500 or not clutter
+            for s in scene.balls:
+                assert min(math.hypot(s.x - b.x, s.y - b.y)
+                           for b in scene.bots) >= smoke.SOAK_CLEAR
+
+
+def test_jax_soak_found_reads_the_last_pass_for_every_later_one(smoke):
+    found = smoke.JAX_SOAK_FOUND
+    assert sorted(found) == list(range(smoke.N_CAMS))
+    for c, by in found.items():
+        for passes in by.values():
+            assert passes and all(len(p) == smoke.SOAK_BANK and set(p) <= {"0", "1"}
+                                  for p in passes)
+        for number in (1, smoke.SOAK_BANK, smoke.SOAK_BANK + 1, 10_000):
+            k, loop = (number - 1) % smoke.SOAK_BANK, (number - 1) // smoke.SOAK_BANK
+            got = smoke.jax_soak_found(c, number)
+            for key, passes in by.items():
+                assert got[key] == (passes[min(loop, len(passes) - 1)][k] == "1")
+
+
+def test_soak_found_counts_against_the_jax_package(smoke):
+    """Camera 0's first pass: the JAX package names every robot but in
+    dense entry 5 and finds the ball in entries 0-5, 7 and 9. A port that
+    does the same in every frame agrees everywhere; one that misses the
+    ball in entry 0 and names every robot in entry 5 falls short once
+    and disagrees twice."""
+    bank = smoke.SOAK_BANK
+    want = smoke.JAX_SOAK_FOUND[0]
+
+    def frame(number, ids, ball):
+        k = (number - 1) % bank
+        errs = [5.0] * 3 + [5.0 if ids else float("inf")]
+        return (number, k, errs, [5.0] * 4, 5.0 if ball else float("inf"), 4, 1)
+
+    same = [frame(n, want["ids"][0][n - 1] == "1", want["ball"][0][n - 1] == "1")
+            for n in range(1, bank + 1)]
+    got = smoke.soak_found(0, same)
+    assert got == {"frames": bank, "robots": bank, "jax_ids": 10, "ids": 10,
+                   "ids_agree": bank, "jax_ball": 8, "ball": 8, "ball_agree": bank}
+    other = list(same)
+    other[0] = frame(1, True, False)
+    other[5] = frame(6, True, True)
+    got = smoke.soak_found(0, other)
+    assert (got["ids"], got["ids_agree"], got["ball"], got["ball_agree"]) == (10, 11, 7, 11)
