@@ -150,8 +150,23 @@ Phases (any failure exits non-zero and prints no result line):
    allocator's live blocks and bytes, the threads and the descriptors
    stay flat; every frame reaches the wire, with its planted robots, and
    with their ids and the ball wherever the JAX package finds them on the
-   same frames (``JAX_SOAK_FOUND``); B1-B4 launch 8/4/4/8 times every
-   frame-set;
+   same frames (``JAX_SOAK_FOUND``); in every frame the outcome is the JAX
+   package's or, where it is not, the port's on the CPU from the tracked
+   prior, colour tables and params the card's fleet dispatched for that
+   frame-set (recorded in ``dispatched.json``, replayed by
+   ``replay_dispatched``); B1-B4 launch 8/4/4/8 times every frame-set;
+   then degraded optics (``run_perturbation``): the six rows of
+   tests/test_perturbation.py (profile, circularity, resampling factor)
+   on the 4 x 1080p rig, six frames a camera of the soak's loop rendered,
+   perturbed by python/perturb.py's optical steps in numpy (blur,
+   vignette, white balance, noise; no JPEG) and mosaicked, each row
+   through ``MultiCamApp.offline`` with the prior from the previous
+   frame-set. The raws' digests, every frame's outcome and each row's mean
+   robot error (within 1 mm) must be the JAX package's on the same frames
+   (``JAX_PERTURB_FOUND``, from tests/jax_perturb_witness.py), "auto"
+   must resolve to warp and B1-B4 launch 8/4/4/8 times a frame-set;
+   recall, ball recall and mean error are printed against the JAX test's
+   bars;
 7. E1 and E5 at their own contracts (no production path runs them): the
    banded warp pass with window starts at its experiment's shapes, and the
    row top-k at rows-per-block 8, 32 and 64 on its experiment's shapes;
@@ -207,6 +222,7 @@ import subprocess
 import sys
 import threading
 import time
+import zlib
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -2758,7 +2774,14 @@ class LogCount(logging.Handler):
             root.addHandler(h)
 
 
-def soak_found(c: int, frames: list) -> dict:
+def soak_outcome(frame) -> dict:
+    """A soak wire frame's outcome: every planted robot named within 30 mm
+    ("ids"), the ball within 40 mm ("ball")."""
+    _, _, errs, _, berr, *_ = frame
+    return {"ids": max(errs) <= 30.0, "ball": berr <= 40.0}
+
+
+def soak_found(c: int, frames: list, replayed: dict | None = None) -> dict:
     """Camera c's detection frames on the soak's wire (number, bank entry,
     each planted robot's error by id and by position, the ball's error,
     ...) counted: all frames; with every planted robot within 30 mm by
@@ -2766,18 +2789,193 @@ def soak_found(c: int, frames: list) -> dict:
     ("jax_ids"), and of those where the port did too ("ids"); the same
     for the ball within 40 mm ("jax_ball", "ball"); and the frames where
     the port's outcome equals the JAX package's ("ids_agree",
-    "ball_agree")."""
+    "ball_agree"). ``replayed`` maps a frame number to the outcome of the
+    port on the CPU from the inputs the card's fleet dispatched for it
+    (``replay_dispatched``): a frame whose outcome differs from the JAX
+    package's on the previous frame's prior agrees where it equals that."""
     out = dict.fromkeys(("frames", "robots", "jax_ids", "ids", "ids_agree", "jax_ball",
                          "ball", "ball_agree"), 0)
-    for number, _, errs, near, berr, *_ in frames:
+    for frame in frames:
+        number, near = frame[0], frame[3]
         want = jax_soak_found(c, number)
-        ids, ball = max(errs) <= 30.0, berr <= 40.0
+        got = soak_outcome(frame)
+        again = (replayed or {}).get(number, {})
+        ids, ball = got["ids"], got["ball"]
         for key, hit in (("frames", True), ("robots", max(near) <= 30.0),
                          ("jax_ids", want["ids"]), ("ids", want["ids"] and ids),
-                         ("ids_agree", want["ids"] == ids), ("jax_ball", want["ball"]),
-                         ("ball", want["ball"] and ball), ("ball_agree", want["ball"] == ball)):
+                         ("ids_agree", ids in (want["ids"], again.get("ids"))),
+                         ("jax_ball", want["ball"]), ("ball", want["ball"] and ball),
+                         ("ball_agree", ball in (want["ball"], again.get("ball")))):
             out[key] += bool(hit)
     return out
+
+
+SOAK_RING = 24  # frame-sets whose dispatched inputs are kept until their wire frames come
+
+
+def arrays_json(arrays: dict) -> dict:
+    """numpy arrays (or scalars) as JSON: dtype, shape and values (float32
+    values round-trip exactly through Python floats)."""
+    import numpy as np
+
+    return {k: {"dtype": str(np.asarray(v).dtype), "shape": list(np.shape(v)),
+                "data": np.asarray(v).ravel().tolist()} for k, v in arrays.items()}
+
+
+def json_arrays(stored: dict) -> dict:
+    """``arrays_json``'s inverse."""
+    import numpy as np
+
+    return {k: np.asarray(v["data"], dtype=v["dtype"]).reshape(v["shape"])
+            for k, v in stored.items()}
+
+
+class Dispatched:
+    """What a wired fleet's ``dispatch_frames`` received in each frame-set
+    (the tracked prior ``_device_inputs`` was given, the colour tables the
+    step reads, the reference colours, the fleet params), kept for the last
+    SOAK_RING frame-sets, and ``records``: those of every camera's frame
+    whose outcome on the wire differs from ``JAX_SOAK_FOUND``. The colour
+    tables carried on the card are copied into pinned host buffers without
+    a wait, so recording leaves the dispatch's timing as it was."""
+
+    def __init__(self, torch, app, by_cam: dict, mode: str):
+        self.torch, self.app, self.by_cam, self.mode = torch, app, by_cam, mode
+        self.ring, self.pinned, self.records, self.lost = {}, {}, [], []
+        self.read = {c: 0 for c in by_cam}
+        self.i = -1
+        inputs = app._device_inputs
+
+        def device_inputs(tracked):
+            import numpy as np
+
+            rec = self.ring[self.i]
+            rec["tracked"] = {k: np.array(v) for k, v in tracked.as_dict().items()}
+            rec["params"] = {k: np.array(v) for k, v in app._fleet_params().items()}
+            rec["refs"] = np.stack([p.colors.packed_refs() for p in app.processors])
+            return inputs(tracked)
+
+        app._device_inputs = device_inputs
+
+    def before(self, i: int, now: float) -> None:
+        """Frame-set i is about to be dispatched: its colour tables."""
+        import numpy as np
+
+        self.i = i
+        rec = {"frame_set": i, "now": now}
+        dev = self.app._colors_dev
+        if dev is None:
+            rec["colors"] = np.stack([p.colors.packed() for p in self.app.processors])
+        else:
+            slot = self.pinned.get(i % SOAK_RING)
+            if slot is None:
+                slot = self.pinned[i % SOAK_RING] = self.torch.empty(
+                    dev.shape, dtype=dev.dtype, pin_memory=True)
+            slot.copy_(dev, non_blocking=True)
+            rec["pinned"] = slot
+        self.ring[i] = rec
+        self.ring.pop(i - SOAK_RING, None)
+
+    def harvest(self) -> None:
+        """Keep the inputs of each newly arrived wire frame whose outcome
+        differs from the JAX package's (its frame-set has finished, so
+        its pinned copy has landed)."""
+        for c, frames in self.by_cam.items():
+            n = len(frames)
+            for frame in frames[self.read[c]:n]:
+                number, k = frame[0], frame[1]
+                got, want = soak_outcome(frame), jax_soak_found(c, number)
+                if got == want:
+                    continue
+                rec = self.ring.get(number - 1)
+                if rec is None or "tracked" not in rec:
+                    self.lost.append((c, number))
+                    continue
+                colors = rec["colors"] if "pinned" not in rec else rec["pinned"].numpy()
+                self.records.append({
+                    "mode": self.mode, "camera": c, "frame": number, "entry": k,
+                    "card": got, "jax": want, "sent": frame[5], "errs": frame[2],
+                    "now": rec["now"],
+                    "inputs": arrays_json({"colors": colors.copy(), "refs": rec["refs"],
+                                           **{f"tracked.{key}": v
+                                              for key, v in rec["tracked"].items()},
+                                           **{f"params.{key}": v
+                                              for key, v in rec["params"].items()}})})
+            self.read[c] = n
+
+
+def replay_fleet(torch, geometry, size, c: int):
+    """Camera c of the soak's rig as a one-camera offline fleet on the CPU
+    (warp, factor 1.25, max_blobs 2000, on-device finishing): the fleet
+    ``replay_dispatched`` and tests/jax_soak_witness.py run."""
+    from vision_processor_tpu_torch.app.multicam_app import MultiCamApp
+
+    fleet = MultiCamApp.offline([vision_config("warp", 1.25, c)], device=torch.device("cpu"))
+    fleet.processors[0].geometry_check(*size, geometry, 1)
+    return fleet
+
+
+def record_inputs(record: dict) -> dict:
+    """A dispatched record's camera lane: its colour tables (1, 7, 3), its
+    reference colours, the tracked prior's arrays and the params, per-camera
+    ones cut to its camera."""
+    from vision_processor_tpu_torch.parallel.multicam import _PER_CAMERA_PARAM_KEYS
+
+    arrays, c = json_arrays(record["inputs"]), record["camera"]
+    params = {k[7:]: v for k, v in arrays.items() if k.startswith("params.")}
+    for k in _PER_CAMERA_PARAM_KEYS:
+        params[k] = params[k][c:c + 1]
+    return {"colors": arrays["colors"][c:c + 1], "refs": arrays["refs"][c:c + 1],
+            "tracked": {k[8:]: v for k, v in arrays.items() if k.startswith("tracked.")},
+            "params": params}
+
+
+def fin_detections(fin: dict, c: int = 0) -> tuple[dict, list]:
+    """Camera c's robots by id (blue + 16) -> (x, y, z, orientation), and
+    its balls (x, y), from a step's finished outputs (numpy)."""
+    import numpy as np
+
+    fin = {k: np.asarray(v)[c] for k, v in fin.items()}
+    bots = {int(fin["bot_id"][i]): (*map(float, fin["bot_world"][i, :3]),
+                                    float(fin["bot_orientation"][i]))
+            for i in np.flatnonzero(fin["bot_valid"])}
+    balls = [tuple(map(float, fin["ball_world"][j, :2]))
+             for j in np.flatnonzero(fin["ball_valid"])]
+    return bots, balls
+
+
+def judged(scene, bots: dict, balls: list) -> dict:
+    """Which planted robots were found with their id within 30 mm, and
+    whether the ball was found within 40 mm (the soak's bounds)."""
+    truth = {b.bot_id + (16 if b.team == "blue" else 0): b for b in scene.bots}
+    ok = sorted(i for i, b in truth.items()
+                if i in bots and math.hypot(bots[i][0] - b.x, bots[i][1] - b.y) <= 30.0)
+    ball = scene.balls[0]
+    return {"ids": ok, "all_ids": len(ok) == len(truth),
+            "ball": any(math.hypot(x - ball.x, y - ball.y) <= 40.0 for x, y in balls),
+            "sent": sorted(bots), "balls": len(balls)}
+
+
+def replay_dispatched(torch, fleet, raw, scene, record: dict) -> dict:
+    """The port on the CPU (``fleet``, from ``replay_fleet``) over the
+    record's frame from the inputs the card's fleet dispatched for it:
+    its tracked prior, colour tables and params. Returns ``judged``."""
+    from vision_processor_tpu_torch.app.processor import TrackedArrays
+    from vision_processor_tpu_torch.io.camera import RawFrame
+
+    import numpy as np
+
+    inputs = record_inputs(record)
+    refs = fleet.processors[0].colors.packed_refs()
+    if not np.array_equal(refs, inputs["refs"][0]):
+        fail(f"replay of camera {record['camera']} frame {record['frame']}: the reference "
+             f"colours differ from the dispatched ones")
+    fleet._colors_dev = torch.from_numpy(inputs["colors"])
+    fleet._fleet_params = lambda: inputs["params"]
+    height, width = raw.shape
+    out = fleet.dispatch_frames([RawFrame(data=raw, fmt="RGGB", width=width, height=height)],
+                                record["now"], TrackedArrays(**inputs["tracked"]))
+    return judged(scene, *fin_detections({k: v.cpu().numpy() for k, v in out[2].items()}))
 
 
 def _soak_run(torch, recorder, bank: dict, mode: str, n: int) -> dict:
@@ -2908,9 +3106,12 @@ def _soak_run(torch, recorder, bank: dict, mode: str, n: int) -> dict:
                 fail(f"soak ({mode}): the app runs pipeline={app.pipeline} "
                      f"staggered={app.staggered}")
             inner, close = app.dispatch_frames, app.close
+            dispatched = Dispatched(torch, app, by_cam, mode)
 
             def dispatch(frames, now, tracked=None):
                 i = state["i"]
+                dispatched.harvest()
+                dispatched.before(i, now)
                 walls.append(time.perf_counter())
                 rss.append(_rss_kb())
                 if i % 3 == 0:
@@ -2963,6 +3164,7 @@ def _soak_run(torch, recorder, bank: dict, mode: str, n: int) -> dict:
             app.run()
             run_s = time.perf_counter() - t_run
             time.sleep(0.3)  # the last datagrams
+            dispatched.harvest()
     finally:
         os.chdir(cwd)
         stop.set()
@@ -2975,6 +3177,26 @@ def _soak_run(torch, recorder, bank: dict, mode: str, n: int) -> dict:
         fail(f"{label}: {state['i']} frame-sets dispatched, expected {total}")
     if "dense" not in fleet:
         fail(f"{label}: no dense frame-set in the warm-up's last {SOAK_BANK}")
+    records = dispatched.records
+    (workdir / "dispatched.json").write_text(json.dumps(records))
+    print(f"{label}: {len(records)} frames whose outcome differs from the JAX package's on "
+          f"the previous frame's prior, their dispatched inputs in "
+          f"{workdir / 'dispatched.json'}; {len(dispatched.lost)} without them")
+    replayed, t_replay = {c: {} for c in range(N_CAMS)}, time.perf_counter()
+    fleets = {}
+    for rec in records:
+        c, k = rec["camera"], rec["entry"]
+        if c not in fleets:
+            fleets[c] = replay_fleet(torch, bank["geometry"], bank["size"], c)
+        again = replay_dispatched(torch, fleets[c], raws[c][k], scenes[c][k], rec)
+        replayed[c][rec["frame"]] = {"ids": again["all_ids"], "ball": again["ball"]}
+        print(f"{label}: camera {c} frame {rec['frame']} (entry {k}): card ids "
+              f"{rec['card']['ids']} ball {rec['card']['ball']}, the JAX package on the "
+              f"previous frame's prior {rec['jax']}; the port on the CPU from the dispatched "
+              f"inputs: ids {again['ids']} sent {again['sent']} ball {again['ball']}")
+    del fleets
+    t_replay = time.perf_counter() - t_replay
+    print(f"{label}: {len(records)} frame-sets replayed on the CPU in {t_replay:.1f} s")
 
     # every reading first, then every gate, so that one run shows them all
     rekeyed = {name: dict(sorted(c.by.items())) for name, c in rekeys.items()}
@@ -2986,7 +3208,7 @@ def _soak_run(torch, recorder, bank: dict, mode: str, n: int) -> dict:
         numbers = [f[0] for f in by_cam[c]]
         order[c] = all(b > a for a, b in zip(numbers, numbers[1:])) and not (
             c == 1 and dark & set(numbers))
-        found[c] = soak_found(c, by_cam[c])
+        found[c] = soak_found(c, by_cam[c], replayed[c])
         noise += [n_robots - sum(e <= 30.0 for e in near)
                   for _, k, _, near, _, n_robots, _ in by_cam[c] if k in SOAK_DENSE]
     (workdir / "wire.json").write_text(json.dumps(by_cam))
@@ -3070,12 +3292,19 @@ def _soak_run(torch, recorder, bank: dict, mode: str, n: int) -> dict:
     # every planted robot by id, and the ball, in every frame where the JAX
     # package finds them on the same frames (a dense frame-set teaches the
     # colour chain the clutter in both packages: ROADMAP section 3); and
-    # the port's outcome the JAX package's, frame by frame
+    # the port's outcome the JAX package's, frame by frame, or, in a frame
+    # where the pipelined prior differs from the previous frame's, the
+    # port's on the CPU from the same dispatched inputs (ROADMAP section 3)
     for c, f in found.items():
-        for hit, of in (("robots", "frames"), ("ids", "jax_ids"), ("ball", "jax_ball"),
-                        ("ids_agree", "frames"), ("ball_agree", "frames")):
+        for hit, of in (("robots", "frames"), ("ids", "jax_ids"), ("ball", "jax_ball")):
             if f[hit] < SOAK_FOUND * f[of]:
                 bad.append(f"camera {c}: {hit} in {f[hit]} of {f[of]} {of} frames")
+        for hit in ("ids_agree", "ball_agree"):
+            if f[hit] != f["frames"]:
+                bad.append(f"camera {c}: {hit} in {f[hit]} of {f['frames']} frames")
+    if dispatched.lost:
+        bad.append(f"frames whose outcome differs from the JAX package's without their "
+                   f"dispatched inputs (camera, frame): {dispatched.lost[:5]}")
     if not any(e <= 30.0 for e in recovered):
         bad.append(f"camera 1 missed a robot by position in the 2 frame-sets after the "
                    f"outage: {recovered} mm")
@@ -3118,9 +3347,12 @@ def run_soak(torch, recorder, card: str, frames: dict) -> dict:
     frames, and with its id in SOAK_FOUND of the frames where the JAX
     package names them all on the same frames, its ball within 40 mm in
     SOAK_FOUND of the frames where the JAX package finds it, and the
-    port's outcome (ids, ball) the JAX package's in SOAK_FOUND of its
-    frames (``soak_found``: after a dense frame-set both packages lose
-    the ball in some frames; ROADMAP section 3), camera 1 its robots again within 2 frame-sets of
+    port's outcome (ids, ball) in every frame the JAX package's on the
+    previous frame's prior or, where not, the port's on the CPU from the
+    inputs the card's fleet dispatched for that frame-set (``Dispatched``,
+    ``replay_dispatched``; the pipelined prior lags: ROADMAP section 3;
+    after a dense frame-set both packages lose the ball in some frames),
+    camera 1 its robots again within 2 frame-sets of
     the outage, no ERROR record, and the reload reaches camera 0 alone;
     (f) every frame-set launches B1 8, B2 4, B3 4 and B4 8 times, the
     dense ones B3 at m = 19 and B4's ring at Q = 512 (one such frame-set's
@@ -3136,6 +3368,382 @@ def run_soak(torch, recorder, card: str, frames: dict) -> dict:
     return {"modes": {m: {k: v for k, v in r.items() if k != "dense_calls"}
                       for m, r in runs.items()},
             "seconds": wall, "card": card, "dense_calls": dense_calls}
+
+
+# ---------------------------------------------------------------------------
+# degraded optics: tests/test_perturbation.py's rows on the production rig
+# ---------------------------------------------------------------------------
+
+PERTURB_ENTRIES = (0, 1, 2, 3, 4, 6)  # the soak bank's plain entries, in order
+# tests/test_perturbation.py:35-72, row for row: profile, thresholds.circularity,
+# robot recall bar, ball recall bar, mean robot error bar (mm), resampling factor
+PERTURB_ROWS = (
+    ("light", 15.0, 0.9, 0.5, 25.0, 1.0),
+    ("moderate", 8.0, 0.8, 0.5, 30.0, 1.0),
+    ("medium", 8.0, 0.7, 0.15, 40.0, 1.0),
+    ("light", 15.0, 0.9, 0.5, 27.0, 1.5),
+    ("light", 15.0, 0.9, 0.15, 27.0, 1.25),
+    ("medium", 8.0, 0.7, 0.15, 42.0, 1.25),
+)
+PERTURB_ERR_MM = 1.0  # a row's mean robot error within this of the JAX package's
+PERTURB_TAP_BITS = 24  # the blur's taps are multiples of 2^-24
+# The JAX package on the perturbed frames, on the CPU (tests/jax_perturb_witness.py:
+# a one-camera fleet a camera, warp, the tracked prior from the previous
+# frame): per row, per camera, "1" at frame j where it named every planted
+# robot within 30 mm ("ids") or found the ball within 40 mm ("ball"); its
+# mean robot error over the row (mm, robots matched by id); the SHA-256 of
+# each camera's six raws. The port on the CPU gave the same in every frame.
+JAX_PERTURB_FOUND = {
+    0: {"ids": ["111111", "111111", "111111", "111111"],
+        "ball": ["111111", "111111", "111111", "111111"],
+        "err": 4.7232006194540155,
+        "digests": [
+            "f4a595f34bcfe6e0288c21e149a99125edbe85e1b2ec49e0ac237a5c0c238882",
+            "9efa751b27c115b1b607f7bc729d273b5175bc9840acb53e4677aa24b35d54f0",
+            "1e010591712003aa8799593a3f95bd09452c44f713863a8292fb725ddd3cfb2f",
+            "e2d8354ec1c47afb3f12b3bd549da5011b0824575b91c885cd8ecb8d68582b53",
+        ]},
+    1: {"ids": ["111111", "111111", "111111", "111111"],
+        "ball": ["111111", "111111", "111111", "111111"],
+        "err": 4.731707665171476,
+        "digests": [
+            "f998ab7fe8a4f107de4c221cc94972bd821984d8ec37188ecbf45745516eff64",
+            "69b0d9982538fb0511096d85860bc2997e0fdef4affa8ca588c84ad8daa38cfb",
+            "473ef00a29ceb947b0721c1d3dba32214f1612786eac7c2d8dd68cb8c2aa5619",
+            "c918a4a42538ec6c243d2fcf0b5ad9061879914bd1bf7ae7bc968cdda83532df",
+        ]},
+    2: {"ids": ["111111", "111111", "111111", "111111"],
+        "ball": ["111111", "111111", "111111", "111111"],
+        "err": 4.78567242013519,
+        "digests": [
+            "866bdfba556dd3158995968b16907d2535b29ed82a87d5958480aa57e0470123",
+            "fc5a2101dc736b7eeff051056b341283513b7f021e57a971df17b22557e06380",
+            "3481599b2a1b4f5faf5f9154ae203880fe14b514c5825194c53f5189121d998a",
+            "7fc4fe5293350aca940c9e7504cd1fba04adcb8721d9ae60784dd987a021c77f",
+        ]},
+    3: {"ids": ["111111", "111111", "111111", "111111"],
+        "ball": ["111111", "111111", "111111", "111111"],
+        "err": 6.091375717132209,
+        "digests": [
+            "f4a595f34bcfe6e0288c21e149a99125edbe85e1b2ec49e0ac237a5c0c238882",
+            "9efa751b27c115b1b607f7bc729d273b5175bc9840acb53e4677aa24b35d54f0",
+            "1e010591712003aa8799593a3f95bd09452c44f713863a8292fb725ddd3cfb2f",
+            "e2d8354ec1c47afb3f12b3bd549da5011b0824575b91c885cd8ecb8d68582b53",
+        ]},
+    4: {"ids": ["111111", "111111", "111111", "111111"],
+        "ball": ["111111", "111111", "111111", "111111"],
+        "err": 5.4802515313075375,
+        "digests": [
+            "f4a595f34bcfe6e0288c21e149a99125edbe85e1b2ec49e0ac237a5c0c238882",
+            "9efa751b27c115b1b607f7bc729d273b5175bc9840acb53e4677aa24b35d54f0",
+            "1e010591712003aa8799593a3f95bd09452c44f713863a8292fb725ddd3cfb2f",
+            "e2d8354ec1c47afb3f12b3bd549da5011b0824575b91c885cd8ecb8d68582b53",
+        ]},
+    5: {"ids": ["111111", "111111", "111111", "111111"],
+        "ball": ["111111", "111111", "111111", "111111"],
+        "err": 5.47665032793167,
+        "digests": [
+            "866bdfba556dd3158995968b16907d2535b29ed82a87d5958480aa57e0470123",
+            "fc5a2101dc736b7eeff051056b341283513b7f021e57a971df17b22557e06380",
+            "3481599b2a1b4f5faf5f9154ae203880fe14b514c5825194c53f5189121d998a",
+            "7fc4fe5293350aca940c9e7504cd1fba04adcb8721d9ae60784dd987a021c77f",
+        ]},
+}
+
+
+def perturb_profiles() -> dict:
+    """``python/perturb.py PROFILES``, read from that file: blur sigma (px),
+    vignette corner gain, noise sigma, white-balance gains (B, G, R), JPEG
+    quality."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("perturb_profiles",
+                                                  ROOT / "python" / "perturb.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.PROFILES
+
+
+def gaussian_taps(sigma: float):
+    """cv2's Gaussian for a float image (``GaussianBlur`` with ksize 0:
+    round(8 sigma + 1) | 1 taps), normalised, each rounded to a multiple of
+    2^-PERTURB_TAP_BITS so that no last bit of ``exp`` moves them."""
+    import numpy as np
+
+    n = int(round(sigma * 8 + 1)) | 1
+    x = np.arange(n, dtype=np.float64) - n // 2
+    taps = np.exp(-x * x / (2.0 * sigma * sigma))
+    return np.round(taps / taps.sum() * 2.0 ** PERTURB_TAP_BITS) / 2.0 ** PERTURB_TAP_BITS
+
+
+def gaussian_blur(img, sigma: float):
+    """A separable Gaussian blur of an (H, W, C) float64 image with cv2's
+    default border (reflect-101): along the rows, then the columns, each a
+    sum of shifted copies in a fixed order. Every step is one IEEE
+    operation an element, so the same input gives the same bytes on any
+    machine."""
+    import numpy as np
+
+    taps = gaussian_taps(sigma)
+    r = len(taps) // 2
+    for axis in (1, 0):
+        pad = [(0, 0)] * img.ndim
+        pad[axis] = (r, r)
+        src = np.pad(img, pad, mode="reflect")
+        n = img.shape[axis]
+        out = np.zeros_like(img)
+        for i, w in enumerate(taps):
+            out += w * np.take(src, np.arange(i, i + n), axis=axis)
+        img = out
+    return img
+
+
+def vignette_mask(h: int, w: int, corner_gain: float):
+    """python/perturb.py ``_vignette_mask`` in float64."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    r = np.sqrt((xx - (w - 1) / 2.0) ** 2 + (yy - (h - 1) / 2.0) ** 2)
+    r /= r.max()
+    return (1.0 - (1.0 - corner_gain) * r * r)[..., None]
+
+
+def perturb_rgb(rgb, p: dict, rng, mask=None):
+    """python/perturb.py ``perturb_frame``'s optical steps, without its JPEG
+    step (a raw camera has none), on an (H, W, 3) u8 RGB image: the blur,
+    the vignette, the white balance, the noise (drawn over the BGR image,
+    as ``perturb_frame`` draws it), the clip to u8. In numpy float64."""
+    import numpy as np
+
+    bgr = rgb[..., ::-1].astype(np.float64)
+    if p["blur"] > 0:
+        bgr = gaussian_blur(bgr, p["blur"])
+    bgr = bgr * (vignette_mask(*bgr.shape[:2], p["vignette"]) if mask is None else mask)
+    bgr = bgr * np.asarray(p["wb"], dtype=np.float64)  # B, G, R gains
+    bgr = bgr + rng.normal(0.0, p["noise"], bgr.shape)
+    return np.ascontiguousarray(np.clip(bgr, 0, 255).astype(np.uint8)[..., ::-1])
+
+
+def perturb_seed(profile: str, c: int, j: int) -> list:
+    """The noise seed of camera c's frame j under a profile."""
+    return [zlib.crc32(profile.encode()), c, j]
+
+
+def perturb_bank(cams, geometry, base, profiles=None, pool=None) -> dict:
+    """The perturbed raws: for each profile, each camera's PERTURB_ENTRIES
+    of ``soak_scenes`` rendered to RGB (``render_rgb``), perturbed
+    (``perturb_rgb``, seed ``perturb_seed``) and mosaicked to 1080p RGGB
+    (``rgb_to_bayer``). Returns {"raws": {profile: [camera][frame]},
+    "digests": {profile: [SHA-256 of camera c's raws]}, "scenes":
+    [camera][frame]}."""
+    import hashlib
+
+    import numpy as np
+
+    from vision_processor_tpu_torch.io.synthetic import render_rgb, rgb_to_bayer
+
+    table = perturb_profiles()
+    profiles = sorted({row[0] for row in PERTURB_ROWS}) if profiles is None else profiles
+    scenes = [[cam[k] for k in PERTURB_ENTRIES] for cam in soak_scenes(cams, base)]
+    jobs = [(c, j) for c in range(len(cams)) for j in range(len(PERTURB_ENTRIES))]
+    mapper = map if pool is None else pool.map
+    rgb = dict(zip(jobs, mapper(lambda cj: render_rgb(cams[cj[0]][0], geometry.field,
+                                                      scenes[cj[0]][cj[1]]), jobs)))
+    h, w = next(iter(rgb.values())).shape[:2]
+    raws, digests = {}, {}
+    for profile in profiles:
+        p = table[profile]
+        mask = vignette_mask(h, w, p["vignette"])
+
+        def one(cj, p=p, mask=mask, profile=profile):
+            rng = np.random.default_rng(perturb_seed(profile, *cj))
+            return rgb_to_bayer(perturb_rgb(rgb[cj], p, rng, mask), "RGGB")
+
+        done = dict(zip(jobs, mapper(one, jobs)))
+        raws[profile] = [[done[(c, j)] for j in range(len(PERTURB_ENTRIES))]
+                         for c in range(len(cams))]
+        digests[profile] = []
+        for cam_raws in raws[profile]:
+            sha = hashlib.sha256()
+            for raw in cam_raws:
+                sha.update(raw.tobytes())
+            digests[profile].append(sha.hexdigest())
+    return {"raws": raws, "digests": digests, "scenes": scenes}
+
+
+def fleet_prior(bots_by_cam: dict, now: float) -> dict:
+    """The tracked prior a fleet's socket would hold after sending each
+    camera's ``bots`` (``fin_detections``) one frame before ``now``."""
+    return {c: [SimpleNamespace(id=i, x=x, y=y, z=z, w=w, vx=0.0, vy=0.0, vw=0.0,
+                                timestamp=now - 0.01) for i, (x, y, z, w) in bots.items()]
+            for c, bots in bots_by_cam.items()}
+
+
+def perturb_score(scene, bots: dict, balls: list) -> dict:
+    """tests/test_perturbation.py's scoring of one frame: the planted robots
+    named by id (at any distance) and their errors, and whether a ball was
+    sent; with ``judged``'s outcome (ids within 30 mm, ball within 40 mm)."""
+    truth = {b.bot_id + (16 if b.team == "blue" else 0): b for b in scene.bots}
+    errs = [math.hypot(bots[i][0] - b.x, bots[i][1] - b.y) for i, b in truth.items()
+            if i in bots]
+    out = judged(scene, bots, balls)
+    return {"named": len(errs), "planted": len(truth), "errs": errs,
+            "any_ball": bool(balls), "ids": out["all_ids"], "ball": out["ball"]}
+
+
+def perturb_row_summary(frames: list) -> dict:
+    """A row's frames (``perturb_score`` by camera, then frame) summed:
+    robot recall, ball recall, mean robot error, and the outcome strings."""
+    import numpy as np
+
+    errs = [e for cam in frames for f in cam for e in f["errs"]]
+    n = sum(len(cam) for cam in frames)
+    return {"recall": sum(f["named"] for cam in frames for f in cam)
+            / max(sum(f["planted"] for cam in frames for f in cam), 1),
+            "ball_recall": sum(f["any_ball"] for cam in frames for f in cam) / max(n, 1),
+            "mean_err": float(np.mean(errs)) if errs else float("inf"),
+            "ids": ["".join("1" if f["ids"] else "0" for f in cam) for cam in frames],
+            "ball": ["".join("1" if f["ball"] else "0" for f in cam) for cam in frames]}
+
+
+def _perturb_fleet(torch, geometry, size, circularity: float, factor: float):
+    """The 4-camera fleet on the card for one row: max_blobs 2000,
+    on-device finishing, "auto" resample, the row's circularity."""
+    from vision_processor_tpu_torch.app.multicam_app import MultiCamApp
+
+    configs = []
+    for c in range(N_CAMS):
+        cfg = vision_config("auto", factor, c)
+        cfg.min_circularity = circularity
+        configs.append(cfg)
+    app = MultiCamApp.offline(configs, device=torch.device("cuda", 0))
+    for proc in app.processors:
+        proc.geometry_check(*size, geometry, 1)
+    return app
+
+
+def run_perturbation(torch, recorder, card: str) -> dict:
+    """Degraded optics on the card at production scale: the six rows of
+    tests/test_perturbation.py:35-72 (profile, circularity, factor) on
+    ``bench_rig``'s 4 cameras (1080p RGGB, max_blobs 2000, "auto" -> warp,
+    on-device finishing), six frames a camera (``perturb_bank``: the soak
+    loop's plain entries, perturbed by python/perturb.py's optical steps),
+    each row through ``MultiCamApp.offline`` frame-set by frame-set with
+    the tracked prior from the previous frame-set. Fails unless (a) each
+    camera's raws have the digest the JAX witness had; (b) in every frame
+    the outcome (every planted robot named within 30 mm, the ball within
+    40 mm) equals ``JAX_PERTURB_FOUND``; (c) each row's mean robot error is
+    within PERTURB_ERR_MM of the JAX package's; (d) "auto" resolves to
+    warp and every frame-set launches SOAK_LAUNCHES. One frame-set's B2,
+    B3 and B4 inputs a profile are kept for phase 8. Recall, ball recall
+    and mean error are printed against the JAX test's bars, with B3's m,
+    B4's ring Q and the flat grid's mm a pixel."""
+    phase("degraded optics: tests/test_perturbation.py's rows on the 4 x 1080p rig")
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from vision_processor_tpu_torch.app.processor import TrackedArrays
+    from vision_processor_tpu_torch.bench import build_rig
+    from vision_processor_tpu_torch.io.camera import RawFrame
+    from vision_processor_tpu_torch.ops import cuda as K
+
+    t0 = time.perf_counter()
+    if sorted(JAX_PERTURB_FOUND) != list(range(len(PERTURB_ROWS))):
+        fail("degraded optics: JAX_PERTURB_FOUND has no entry for every row")
+    rig = build_rig(N_CAMS, dense=True, dense_blobs=1900, resampling_factor=1.25,
+                    return_scenes=True, raws=np.zeros((N_CAMS, 1080, 1920), np.uint8),
+                    device=torch.device("cuda", 0))
+    geometry, cams = rig[7], rig[8]
+    with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        bank = perturb_bank(cams, geometry, rig[9], pool=pool)
+    size = tuple(int(v) for v in cams[0][0].size)
+    t_bank = time.perf_counter() - t0
+    print(f"degraded optics: {N_CAMS} cameras x {len(PERTURB_ENTRIES)} frames x "
+          f"{len(bank['raws'])} profiles rendered and perturbed in {t_bank:.1f} s")
+    bad, rows, kept = [], [], {}
+    for r, (profile, circ, bar_recall, bar_ball, bar_err, factor) in enumerate(PERTURB_ROWS):
+        want = JAX_PERTURB_FOUND[r]
+        label = f"row {r} ({profile}, circularity {circ}, factor {factor})"
+        # (a) the frames are the witness's
+        if bank["digests"][profile] != want["digests"]:
+            fail(f"degraded optics {label}: the raws' digests {bank['digests'][profile]} "
+                 f"differ from the witness's {want['digests']}: the frames differ")
+        app = _perturb_fleet(torch, geometry, size, circ, factor)
+        slots = app.processors[0].det_cfg.max_tracked
+        scores = [[] for _ in range(N_CAMS)]
+        last, ms, qs, per_set = {}, set(), set(), []
+        for j in range(len(PERTURB_ENTRIES)):
+            now = 0.01 * j
+            frames = [RawFrame(data=bank["raws"][profile][c][j], fmt="RGGB", width=size[0],
+                               height=size[1]) for c in range(N_CAMS)]
+            for calls in recorder.calls.values():
+                calls.clear()
+            launched = dict(K.LAUNCHES)
+            recorder.on = True
+            try:
+                out = app.dispatch_frames(frames, now, TrackedArrays.build(
+                    fleet_prior(last, now), now, slots))
+                fin = {k: v.cpu().numpy() for k, v in out[2].items()}
+            finally:
+                recorder.on = False
+            per_set.append({k: K.LAUNCHES[k] - launched[k] for k in launched})
+            ms |= {m for (_, m), _ in recorder.calls["row_topk"]}
+            qs |= {q.shape[0] for (q, *_), kw in recorder.calls["query_select_topk"]
+                   if kw["by_rank"]}
+            if profile not in kept and j == len(PERTURB_ENTRIES) - 1:
+                kept[profile] = {name: list(recorder.calls[name]) for name in
+                                 ("blob_response_fused", "row_topk", "query_select_topk")}
+            last = {}
+            for c in range(N_CAMS):
+                bots, balls = fin_detections(fin, c)
+                last[c] = bots
+                scores[c].append(perturb_score(bank["scenes"][c][j], bots, balls))
+        for calls in recorder.calls.values():
+            calls.clear()
+        mode = app.mc_cfg.bm.resample_mode
+        scale = [float(p.perspective.field_scale) for p in app.processors]
+        got = perturb_row_summary(scores)
+        del app
+        row = {"profile": profile, "circularity": circ, "factor": factor, "mode": mode,
+               "mm_per_flat_px": scale, "b3_m": sorted(ms), "b4_ring_q": sorted(qs), **got,
+               "jax_mean_err": want["err"],
+               "bars": {"recall": bar_recall, "ball_recall": bar_ball, "mean_err": bar_err}}
+        rows.append(row)
+        clears = (got["recall"] >= bar_recall and got["ball_recall"] >= bar_ball
+                  and got["mean_err"] < bar_err)
+        print(f"degraded optics {label}: mode {mode}, {scale[0]:.4f} mm a flat pixel; robot "
+              f"recall {got['recall']:.4f} (bar {bar_recall}), ball recall "
+              f"{got['ball_recall']:.4f} (bar {bar_ball}), mean robot error "
+              f"{got['mean_err']:.4f} mm (bar {bar_err}; the JAX package {want['err']:.4f}) "
+              f"-> {'clears' if clears else 'misses'} the JAX test's bars; ids by camera "
+              f"{got['ids']} (JAX {want['ids']}), ball {got['ball']} (JAX {want['ball']}); "
+              f"B3 m {sorted(ms)}, B4 ring Q {sorted(qs)}")
+        # (b) every frame's outcome the JAX package's
+        for key in ("ids", "ball"):
+            if got[key] != want[key]:
+                bad.append(f"{label}: {key} by camera {got[key]}, the JAX package "
+                           f"{want[key]}")
+        # (c) the mean robot error
+        if not abs(got["mean_err"] - want["err"]) <= PERTURB_ERR_MM:
+            bad.append(f"{label}: mean robot error {got['mean_err']:.4f} mm, the JAX "
+                       f"package {want['err']:.4f}")
+        # (d) the path and its launches
+        if mode != "warp":
+            bad.append(f"{label}: \"auto\" resolved to {mode!r}, expected 'warp'")
+        for i, launched in enumerate(per_set):
+            wrong = {k: (launched[k], v) for k, v in SOAK_LAUNCHES.items()
+                     if launched[k] != v}
+            if wrong:
+                bad.append(f"{label}: frame-set {i} launched (got, expected) {wrong}")
+                break
+    wall = time.perf_counter() - t0
+    print(f"degraded optics phase: {wall:.1f} s ({card}); the perturbed B2/B3/B4 inputs "
+          f"of one frame-set a profile ({sorted(kept)}) go to phase 8")
+    if bad:
+        fail("degraded optics: " + "; ".join(bad))
+    return {"rows": rows, "seconds": wall, "bank_seconds": t_bank, "card": card,
+            "digests": bank["digests"], "calls": kept}
 
 
 def _e1_inputs(torch):
@@ -4348,13 +4956,53 @@ def _check_e5(torch, contract, before):
     return res
 
 
+def _check_perturbed(torch, calls_by_profile: dict) -> dict:
+    """B2, B3 and B4 on every call of the degraded-optics phase's kept
+    frame-set a profile: B2 bit-equal to its plain version with the count
+    equal, B3 every slot select_m's and values and valid indices the plain
+    version's, B4 every slot the plain version's. Returns each kernel's max
+    abs err."""
+    import vision_processor_tpu_torch.ops.blob_fused as BF
+    import vision_processor_tpu_torch.ops.topk as T
+
+    fused = BF.blob_response_fused.__wrapped__
+    row_topk, query = T.row_topk.__wrapped__, T.query_select_topk.__wrapped__
+    err = {"B2": 0.0, "B3": 0.0, "B4": 0.0}
+    seen = []
+    for profile, calls in calls_by_profile.items():
+        for args, kw in calls["blob_response_fused"]:
+            same, n, e = _b2_equal(torch, fused, *args, **kw)
+            if not same:
+                fail(f"blob_response_fused ({profile}): not bit-equal to its plain version "
+                     f"(max abs err {e:.3g}) or its count differs")
+            err["B2"] = max(err["B2"], e)
+        for (x, m), _ in calls["row_topk"]:
+            got, (v_p, i_p) = row_topk(x, m), T._row_topk_plain(x, m)
+            valid = v_p > float("-inf")
+            if not (_same_slots(torch, got, T.select_m(x, m)) and torch.equal(got[0], v_p)
+                    and torch.equal(got[1][valid], i_p[valid])):
+                fail(f"row_topk ({profile}, m={m}): a slot differs from select_m's or the "
+                     f"plain version's")
+        for (a, b, c, d), kw in calls["query_select_topk"]:
+            want = T._query_select_plain(a, b, c, d, kw["m"], kw["by_rank"])
+            if not _same_slots(torch, query(a, b, c, d, **kw), want):
+                fail(f"query_select_topk ({profile}, Q={a.shape[0]}, m={kw['m']}): a slot "
+                     f"differs from the plain version's")
+        seen.append(f"{profile}: B2 {len(calls['blob_response_fused'])}, B3 "
+                    f"{len(calls['row_topk'])}, B4 {len(calls['query_select_topk'])} calls")
+    print(f"B2, B3, B4 on the degraded-optics frame-sets: equal to their plain versions "
+          f"({'; '.join(seen)})")
+    return err
+
+
 def check_kernels(torch, s1: dict, s2: dict, s3: dict, s4: dict, s4f1: dict,
-                  contracts: dict, bench: dict, soak: dict, before) -> list:
+                  contracts: dict, bench: dict, soak: dict, perturbed: dict, before) -> list:
     """Each kernel on the last frame's inputs of the slice whose path it
     belongs to: B1-B4 slice 1's, B5-B7 slice 2's, E4 slice 3's, E2/E3 slice
     4's; E1 and E5 on their contract run's inputs; B2 and B5 also on slice
     4's factor-1.0 map, B3 and B4 also on the bench's and the soak's dense
-    frame-sets, beside the other checkout's where ``before`` has it."""
+    frame-sets, beside the other checkout's where ``before`` has it; B2, B3
+    and B4 also on the degraded-optics phase's frame-sets."""
     phase("kernels vs plain")
     one = torch.zeros(1, device="cuda")
     floor = time_fn(torch, one.zero_)
@@ -4362,7 +5010,8 @@ def check_kernels(torch, s1: dict, s2: dict, s3: dict, s4: dict, s4f1: dict,
           f"{_fmt(floor)}")
     c1, c2, c3, c4 = s1["calls"], s2["calls"], s3["calls"], s4["calls"]
     b2_f1 = s4f1["calls"]["blob_response_fused"]
-    return [
+    degraded = _check_perturbed(torch, perturbed["calls"])
+    rows = [
         ("B1", _check_b1(torch, c1["band_pass"])),
         ("B2", _check_b2(torch, c1["blob_response_fused"], b2_f1, before)),
         ("B3", _check_b3(torch, c1["row_topk"], s4f1["calls"]["row_topk"], before,
@@ -4379,6 +5028,10 @@ def check_kernels(torch, s1: dict, s2: dict, s3: dict, s4: dict, s4f1: dict,
         ("E4", _check_e4(torch, c3["corner_stack"])),
         ("E5", _check_e5(torch, contracts, before)),
     ]
+    for row, res in rows:
+        if row in degraded:
+            res["err"] = max(res["err"], degraded[row])
+    return rows
 
 
 def main() -> None:
@@ -4437,6 +5090,7 @@ def main() -> None:
     processes = run_processes(torch, rig, replay, card)
     bench = run_bench(torch, recorder)
     soak = run_soak(torch, recorder, card, soak_frames)
+    perturbed = run_perturbation(torch, recorder, card)
     contracts = run_contracts(torch)
     for label, s, unit in (("slice 1 (warp, score-first)", s1, "frame"),
                            ("slice 2 (gather, circ-first, fused combo)", s2, "frame"),
@@ -4463,7 +5117,8 @@ def main() -> None:
                                        "frame-set")
         s4["profile"] = profile_frames(torch, s4["run"], STAGES_SLICE4, "slice 4",
                                        "frame-set")
-    results = check_kernels(torch, s1, s2, s3, s4, s4f1, contracts, bench, soak, before)
+    results = check_kernels(torch, s1, s2, s3, s4, s4f1, contracts, bench, soak, perturbed,
+                            before)
     # E3 computes E2's function: one kernel, one measurement, two rows
     e2 = dict(results)["E2"]
     results.insert([row for row, _ in results].index("E4"),
@@ -4510,6 +5165,7 @@ def main() -> None:
         "processes": processes,
         "bench": {k: v for k, v in bench.items() if k != "dense_calls"},
         "soak": {k: v for k, v in soak.items() if k != "dense_calls"},
+        "degraded optics": {k: v for k, v in perturbed.items() if k != "calls"},
     }, indent=1))
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))

@@ -197,3 +197,140 @@ def test_soak_found_counts_against_the_jax_package(smoke):
     other[5] = frame(6, True, True)
     got = smoke.soak_found(0, other)
     assert (got["ids"], got["ids_agree"], got["ball"], got["ball_agree"]) == (10, 11, 7, 11)
+
+
+def test_perturbation_is_perturb_frame_without_its_jpeg(smoke):
+    """The smoke's numpy perturbation against python/perturb.py
+    ``perturb_frame``'s steps before its JPEG step (cv2's blur, float32),
+    on one 960x720 frame for every profile: within one u8 level."""
+    import importlib.util
+
+    import cv2
+
+    spec = importlib.util.spec_from_file_location("perturb_under_test",
+                                                  ROOT / "python" / "perturb.py")
+    P = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(P)
+    assert smoke.perturb_profiles() == P.PROFILES
+    rgb = np.random.default_rng(3).integers(0, 256, (720, 960, 3)).astype(np.uint8)
+    for name, p in P.PROFILES.items():
+        got = smoke.perturb_rgb(rgb, p, np.random.default_rng(5))
+        img = cv2.GaussianBlur(rgb[..., ::-1].astype(np.float32), (0, 0), p["blur"])
+        img *= P._vignette_mask(720, 960, p["vignette"])
+        img *= np.asarray(p["wb"], dtype=np.float32)
+        img += np.random.default_rng(5).normal(0.0, p["noise"], img.shape).astype(np.float32)
+        want = np.clip(img, 0, 255).astype(np.uint8)[..., ::-1]
+        diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        assert got.dtype == np.uint8 and got.shape == rgb.shape
+        assert int(diff.max()) <= 1, name
+        assert float((diff > 0).mean()) < 1e-3, name
+        taps = smoke.gaussian_taps(p["blur"])
+        assert len(taps) == (int(round(p["blur"] * 8 + 1)) | 1)
+        assert np.all(taps * 2.0 ** smoke.PERTURB_TAP_BITS == np.round(
+            taps * 2.0 ** smoke.PERTURB_TAP_BITS))
+
+
+def test_perturbed_raws_have_one_digest_a_seed(smoke):
+    """The same seed gives the same raws twice (the digest the witness and
+    the card compare); another seed another digest."""
+    import hashlib
+
+    p = smoke.perturb_profiles()["medium"]
+    rgb = np.random.default_rng(9).integers(0, 256, (120, 160, 3)).astype(np.uint8)
+
+    def digest(seed):
+        from vision_processor_tpu_torch.io.synthetic import rgb_to_bayer
+
+        rng = np.random.default_rng(seed)
+        raw = rgb_to_bayer(smoke.perturb_rgb(rgb, p, rng), "RGGB")
+        return hashlib.sha256(raw.tobytes()).hexdigest()
+
+    seed = smoke.perturb_seed("medium", 2, 5)
+    assert digest(seed) == digest(list(seed))
+    assert digest(seed) != digest(smoke.perturb_seed("medium", 2, 4))
+
+
+def test_soak_found_takes_the_replayed_outcome(smoke):
+    """A frame whose outcome differs from the JAX package's on the previous
+    frame's prior agrees where the port's replay from the card's
+    dispatched inputs gives the card's outcome, and only there."""
+    want = smoke.JAX_SOAK_FOUND[0]
+    assert want["ids"][0][5] == "0"  # camera 0 misnames a robot in dense entry 5
+    frame = (6, 5, [5.0] * 4, [5.0] * 4, 5.0, 4, 1)  # the card names all four
+    assert smoke.soak_found(0, [frame])["ids_agree"] == 0
+    assert smoke.soak_found(0, [frame], {6: {"ids": True, "ball": True}})["ids_agree"] == 1
+    assert smoke.soak_found(0, [frame], {6: {"ids": False, "ball": True}})["ids_agree"] == 0
+    assert smoke.soak_found(0, [frame], {7: {"ids": True, "ball": True}})["ids_agree"] == 0
+
+
+def test_dispatched_inputs_replay_to_the_same_detections(smoke):
+    """The soak's record of what a fleet dispatched (``Dispatched``: the
+    tracked prior, colour tables, reference colours, params), through JSON
+    and back, replayed by ``replay_dispatched`` on a fresh fleet, gives
+    the fleet's own detections; frames whose outcome equals the JAX
+    package's are not kept."""
+    import json
+    from types import SimpleNamespace
+
+    from vision_processor_tpu_torch.app.processor import TrackedArrays
+    from vision_processor_tpu_torch.bench import build_rig
+    from vision_processor_tpu_torch.io.camera import RawFrame
+    from vision_processor_tpu_torch.io.synthetic import render_raw
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        rig = build_rig(4, resampling_factor=1.25, return_scenes=True,
+                        raws=np.zeros((4, 1080, 1920), np.uint8), device="cpu")
+        geometry, cams = rig[7], rig[8]
+        scenes = smoke.soak_scenes(cams, rig[9])[0][:3]
+        size = tuple(int(v) for v in cams[0][0].size)
+        raws = [render_raw(cams[0][0], geometry.field, s, "RGGB") for s in scenes]
+        fleet = smoke.replay_fleet(torch, geometry, size, 0)
+        by_cam = {0: []}
+        shim = SimpleNamespace(empty=lambda *a, pin_memory, **k: torch.empty(*a, **k))
+        dispatched = smoke.Dispatched(shim, fleet, by_cam, "test")
+        slots = fleet.processors[0].det_cfg.max_tracked
+        last, outcomes = {}, []
+        for i, raw in enumerate(raws):
+            now = 0.01 * i
+            dispatched.harvest()
+            dispatched.before(i, now)
+            out = fleet.dispatch_frames(
+                [RawFrame(data=raw, fmt="RGGB", width=size[0], height=size[1])], now,
+                TrackedArrays.build(smoke.fleet_prior({0: last}, now), now, slots))
+            bots, balls = smoke.fin_detections({k: v.numpy() for k, v in out[2].items()})
+            last = bots
+            outcomes.append(smoke.judged(scenes[i], bots, balls))
+            # frame 1 on the wire as the JAX package saw it, the others not
+            errs = [5.0] * 4 if i == 0 else [float("inf")] * 4
+            by_cam[0].append((i + 1, i, errs, [5.0] * 4, 5.0, len(bots), len(balls)))
+        dispatched.harvest()
+        assert [r["frame"] for r in dispatched.records] == [2, 3] and not dispatched.lost
+        assert outcomes[2]["all_ids"] and outcomes[1]["sent"]
+        replay = smoke.replay_fleet(torch, geometry, size, 0)
+        for rec in json.loads(json.dumps(dispatched.records)):
+            got = smoke.replay_dispatched(torch, replay, raws[rec["entry"]],
+                                          scenes[rec["entry"]], rec)
+            assert got == outcomes[rec["frame"] - 1]
+    finally:
+        torch.set_num_threads(n)
+
+
+def test_perturb_bank_gives_the_witness_digests(smoke):
+    """Camera 0's light-profile raws, rendered and perturbed here, have the
+    digest JAX_PERTURB_FOUND holds for every light row (the frames the
+    card's phase must see); every row has its entry."""
+    from vision_processor_tpu_torch.bench import build_rig
+
+    assert sorted(smoke.JAX_PERTURB_FOUND) == list(range(len(smoke.PERTURB_ROWS)))
+    rig = build_rig(4, dense=True, dense_blobs=1900, resampling_factor=1.25,
+                    return_scenes=True, raws=np.zeros((4, 1080, 1920), np.uint8),
+                    device="cpu")
+    bank = smoke.perturb_bank(rig[8][:1], rig[7], rig[9][:1], profiles=["light"])
+    assert [r.shape for r in bank["raws"]["light"][0]] == [(1080, 1920)] * 6
+    for r, row in enumerate(smoke.PERTURB_ROWS):
+        want = smoke.JAX_PERTURB_FOUND[r]
+        assert len(want["digests"]) == len(want["ids"]) == len(want["ball"]) == 4
+        if row[0] == "light":
+            assert want["digests"][0] == bank["digests"]["light"][0]
