@@ -155,6 +155,8 @@ Phases (any failure exits non-zero and prints no result line):
    prior, colour tables and params the card's fleet dispatched for that
    frame-set (recorded in ``dispatched.json``, replayed by
    ``replay_dispatched``); B1-B4 launch 8/4/4/8 times every frame-set;
+   the clock sync's suppressed backwards jumps and the offset of
+   ``get_real_time()`` before and after each run are printed;
    then degraded optics (``run_perturbation``): the six rows of
    tests/test_perturbation.py (profile, circularity, resampling factor)
    on the 4 x 1080p rig, six frames a camera of the soak's loop rendered,
@@ -167,6 +169,17 @@ Phases (any failure exits non-zero and prints no result line):
    must resolve to warp and B1-B4 launch 8/4/4/8 times a frame-set;
    recall, ball recall and mean error are printed against the JAX test's
    bars;
+   then the codec round trip (``run_codec``): camera 0 of the rig (1080p
+   RGGB) over the soak loop's six plain entries, rendered, encoded by the
+   port's H.264 encoder at qp 24, decoded by cv2 and mosaicked again,
+   through the ``App`` on the card under config.yml as shipped (a
+   registered driver, geometry from the GeometryBus, detections off an
+   isolated group). The decoded frames' digest and every frame's robots
+   (ids within 1 mm) and balls must be the JAX App's on the same frames
+   (``JAX_CODEC_FOUND``, from tests/jax_codec_witness.py), every frame
+   after the first within 30 / 40 mm, "auto" resolved to warp, B1 twice,
+   B2 and B3 once and B4 twice a frame, and B1-B4 on the last frame's
+   inputs equal to their plain versions;
 7. E1 and E5 at their own contracts (no production path runs them): the
    banded warp pass with window starts at its experiment's shapes, and the
    row top-k at rows-per-block 8, 32 and 64 on its experiment's shapes;
@@ -202,8 +215,8 @@ Phases (any failure exits non-zero and prints no result line):
    and timed in turns with it), and prints the warps a block it chose.
    B6 and E5 print their ``-Xptxas -v`` registers.
 
-Each slice, each App phase, the camera mesh, each bench run and the
-contract run of E1 and E5 is driven with the launch counts set to 0 just
+Each slice, each App phase (the codec round trip's too), the camera mesh,
+each bench run and the contract run of E1 and E5 is driven with the launch counts set to 0 just
 before it and read just after; each child process of the processes phase
 starts at 0 and writes its counts when it exits. The last line is
 ``{"ok": true, "device": {...}}``; the line before it the per-kernel JSON
@@ -2742,14 +2755,17 @@ def _rss_kb() -> float:
 
 class LogCount(logging.Handler):
     """Sends every log record of a block to ``path`` in place of stderr and
-    counts them by level; keeps the ERROR ones."""
+    counts them by level; keeps the ERROR ones and counts the clock sync's
+    suppressed backwards jumps."""
 
     def __init__(self, path: Path):
         super().__init__(level=logging.DEBUG)
-        self.path, self.levels, self.errors = path, {}, []
+        self.path, self.levels, self.errors, self.jumps = path, {}, [], 0
 
     def emit(self, record):
         self.levels[record.levelname] = self.levels.get(record.levelname, 0) + 1
+        if "backwards time jump suppressed" in record.getMessage():
+            self.jumps += 1  # net/udp.py update_time (ROADMAP Q1)
         if record.levelno >= logging.ERROR:
             self.errors.append(self.format(record))
 
@@ -2987,6 +3003,7 @@ def _soak_run(torch, recorder, bank: dict, mode: str, n: int) -> dict:
 
     from vision_processor_tpu_torch.app import multicam_app as MA
     from vision_processor_tpu_torch.io.camera import CameraDriver, RawFrame, register_driver
+    from vision_processor_tpu_torch.net import udp as UDP
     from vision_processor_tpu_torch.net.udp import UDPSocket
     from vision_processor_tpu_torch.ops import blob as OB
     from vision_processor_tpu_torch.ops import cuda as K
@@ -3161,8 +3178,10 @@ def _soak_run(torch, recorder, bank: dict, mode: str, n: int) -> dict:
             app.close = closing
             threading.Thread(target=watchdog, daemon=True).start()
             t_run = time.perf_counter()
+            offset = {"start": UDP.get_real_time() - time.time()}
             app.run()
             run_s = time.perf_counter() - t_run
+            offset["end"] = UDP.get_real_time() - time.time()
             time.sleep(0.3)  # the last datagrams
             dispatched.harvest()
     finally:
@@ -3243,6 +3262,7 @@ def _soak_run(torch, recorder, bank: dict, mode: str, n: int) -> dict:
         "noise_bots_per_dense_frame": float(np.mean(noise)) if noise else None,
         "rss_slope_kb_per_frame_set": slope, "log_levels": logs.levels,
         "min_circularity": circ, "dense_m": dense_m, "dense_ring_q": ring_q,
+        "suppressed_time_jumps": logs.jumps, "real_time_offset_s": offset,
     }
     print(f"{label}: {total} frame-sets ({SOAK_WARM} warm-up) in {run_s:.1f} s; churn every "
           f"3rd, reload at {reload_at}, camera 1 dark {outage[0]}-{outage[-1]}; kernel builds "
@@ -3261,6 +3281,9 @@ def _soak_run(torch, recorder, bank: dict, mode: str, n: int) -> dict:
           f"camera 1 after the outage, worst robot by position {recovered} mm; noise "
           f"bots a dense frame {out['noise_bots_per_dense_frame']}; log records {logs.levels}; "
           f"min_circularity {circ}")
+    print(f"{label}: clock sync (ROADMAP Q1): {logs.jumps} suppressed backwards jumps in "
+          f"{total} frame-sets; get_real_time() - time.time() {offset['start']:.6f} s before "
+          f"the run, {offset['end']:.6f} s after it")
     print(f"{label}: launches {sums}; dense frame-set B3 m {dense_m}, ring Q {ring_q}")
 
     bad = []
@@ -3744,6 +3767,329 @@ def run_perturbation(torch, recorder, card: str) -> dict:
         fail("degraded optics: " + "; ".join(bad))
     return {"rows": rows, "seconds": wall, "bank_seconds": t_bank, "card": card,
             "digests": bank["digests"], "calls": kept}
+
+
+# ---------------------------------------------------------------------------
+# codec round trip: tests/test_codec_roundtrip.py at the rig's full width
+# ---------------------------------------------------------------------------
+
+CODEC_QP = 24  # tests/test_codec_roundtrip.py:95
+CODEC_SLICES = 4  # the encoder's slices, fixed: the stream must not depend on the cores
+CODEC_ENTRIES = PERTURB_ENTRIES  # camera 0's frames: the soak loop's plain entries
+CODEC_GROUP, CODEC_PORT = "224.99.99.181", 18181  # the App's vision and GC sockets
+CODEC_STREAM_END = 182  # its debug stream: 224.99.99.182
+CODEC_GAP_S = 0.05  # between reads: a frame's detections reach the App's socket first
+CODEC_ERR_MM = 1.0  # a detection within this of the JAX package's on the same frames
+CODEC_LAUNCHES = {"band_pass": 2, "blob_response_fused": 1, "row_topk": 1,
+                  "query_select_topk": 2}  # a frame, on the warp path
+# The JAX package's App on the decoded frames, on the CPU, in the warp
+# resample (tests/jax_codec_witness.py): the SHA-256 of the decoded RGB
+# frames and, a detection frame, the robots [team, id, x, y] and the balls
+# [x, y] it sent. The port's App on the CPU sent the same ids, within
+# 0.000492 mm.
+JAX_CODEC_FOUND = {
+    "digest": "6731599720d3b46b4d60046544eadb71b50d1ee9ec232fa48d0e1d5d6290c4a3",
+    "frames": [
+        {"number": 1, "bots": [
+            ["b", 1, -2964.056640625, -1947.9078369140625],
+            ["b", 3, -2068.310791015625, -1940.430419921875],
+            ["y", 0, -1487.67626953125, -742.0733642578125],
+            ["y", 2, -3736.71142578125, -799.5391845703125],
+        ], "balls": [[-1950.0927734375, -1506.1446533203125]]},
+        {"number": 2, "bots": [
+            ["b", 1, -3005.612548828125, -1795.8387451171875],
+            ["b", 3, -2107.615478515625, -1789.039794921875],
+            ["y", 0, -1527.65087890625, -590.6537475585938],
+            ["y", 2, -3776.761962890625, -650.6134643554688],
+        ], "balls": [[-1992.1512451171875, -1359.8125], [-1989.006591796875, -1357.1292724609375]]},
+        {"number": 3, "bots": [
+            ["b", 1, -3114.6396484375, -1687.539794921875],
+            ["b", 3, -2218.466552734375, -1679.8946533203125],
+            ["y", 0, -1637.6175537109375, -480.6017761230469],
+            ["y", 2, -3886.001953125, -539.44140625],
+        ], "balls": [[-2099.52001953125, -1248.6217041015625]]},
+        {"number": 4, "bots": [
+            ["b", 1, -3266.560546875, -1646.1591796875],
+            ["b", 3, -2368.056396484375, -1638.813232421875],
+            ["y", 0, -1787.746337890625, -440.9791564941406],
+            ["y", 2, -4036.3759765625, -501.54071044921875],
+        ], "balls": [[-2249.62890625, -1210.236083984375]]},
+        {"number": 5, "bots": [
+            ["b", 1, -3414.695068359375, -1685.794189453125],
+            ["b", 3, -2518.00830078125, -1681.0223388671875],
+            ["y", 0, -1935.6024169921875, -481.7979736328125],
+            ["y", 2, -4185.8427734375, -538.33203125],
+        ], "balls": [[-2398.61279296875, -1248.8662109375]]},
+        {"number": 6, "bots": [
+            ["b", 1, -3564.554443359375, -1947.0604248046875],
+            ["b", 3, -2668.22412109375, -1939.6229248046875],
+            ["y", 0, -2088.306396484375, -741.3490600585938],
+            ["y", 2, -4336.00390625, -800.2764282226562],
+        ], "balls": [[-2548.886474609375, -1508.333251953125]]},
+    ],
+}
+
+
+def codec_bank(cams, geometry, base, path: Path) -> dict:
+    """Rig camera 0's CODEC_ENTRIES of ``soak_scenes`` rendered to RGB
+    (``render_rgb``), encoded to one H.264 stream at ``path`` by the port's
+    native encoder (CAVLC at qp CODEC_QP, CODEC_SLICES slices), decoded by
+    cv2 and mosaicked to 1080p RGGB (``rgb_to_bayer``), as
+    tests/test_codec_roundtrip.py:25-49 does. Returns {"raws", "scenes",
+    "digest" (SHA-256 of the decoded RGB frames), "stream_bytes",
+    "mean_abs" (the codec's mean change of a pixel value)}."""
+    import hashlib
+
+    import cv2
+    import numpy as np
+
+    from vision_processor_tpu_torch.io.native import H264Encoder
+    from vision_processor_tpu_torch.io.synthetic import render_rgb, rgb_to_bayer
+
+    scenes = [soak_scenes(cams[:1], base[:1])[0][k] for k in CODEC_ENTRIES]
+    rgb = [render_rgb(cams[0][0], geometry.field, s) for s in scenes]
+    enc = H264Encoder(qp=CODEC_QP, n_slices=CODEC_SLICES)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(b"".join(enc.encode_rgb(f) for f in rgb))
+    h, w = rgb[0].shape[:2]
+    cap = cv2.VideoCapture(str(path))
+    decoded = []
+    while True:
+        ok, bgr = cap.read()
+        if not ok:
+            break
+        decoded.append(np.ascontiguousarray(bgr[:h, :w, ::-1]))  # BGR -> RGB, unpad
+    cap.release()
+    if len(decoded) != len(rgb):
+        fail(f"codec round trip: cv2 decoded {len(decoded)} of {len(rgb)} frames")
+    sha = hashlib.sha256()
+    for f in decoded:
+        sha.update(f.tobytes())
+    mean_abs = float(np.mean([np.abs(d.astype(np.int16) - r.astype(np.int16)).mean()
+                              for d, r in zip(decoded, rgb)]))
+    return {"raws": [rgb_to_bayer(f, "RGGB") for f in decoded], "scenes": scenes,
+            "digest": sha.hexdigest(), "stream_bytes": path.stat().st_size,
+            "mean_abs": mean_abs}
+
+
+def codec_config(workdir: Path, stream: bool = True, mode: str | None = None) -> Path:
+    """The repository's config.yml as shipped, with the SMOKE_CODEC driver,
+    the isolated vision, GC and stream addresses, (``stream`` false) the
+    debug stream off and (``mode``) ``thresholds.resample_mode`` set: on
+    the CPU "auto" takes the gather, on the card the warp."""
+    import yaml
+
+    config = yaml.safe_load((ROOT / "config.yml").read_text())
+    config["camera"] = {**(config.get("camera") or {}), "driver": "SMOKE_CODEC"}
+    config["network"] = {"vision_ip": CODEC_GROUP, "vision_port": CODEC_PORT,
+                         "gc_ip": CODEC_GROUP, "gc_port": CODEC_PORT + 1}
+    config["stream"] = {**(config.get("stream") or {}), "ip_base_prefix": "224.99.99.",
+                        "ip_base_end": CODEC_STREAM_END, "port": CODEC_PORT + 2}
+    if not stream:
+        config["stream"]["active"] = False
+    if mode is not None:
+        config["thresholds"] = {**(config.get("thresholds") or {}), "resample_mode": mode}
+    workdir.mkdir(parents=True, exist_ok=True)
+    path = workdir / "config.yml"
+    path.write_text(yaml.dump(config))
+    return path
+
+
+def codec_app_run(pkg: str, cfg_path: Path, raws: list, size, packet: bytes, last=None,
+                  **app_kw) -> tuple:
+    """Package ``pkg``'s App under ``cfg_path``, its camera the SMOKE_CODEC
+    driver over ``raws`` (one read every CODEC_GAP_S after the first; the
+    clock 10 ms a frame), the geometry ``packet`` from a GeometryBus, every
+    datagram on the group recorded off the wire; ``last()`` runs before
+    the last frame is handed over. Returns (the detection frames off the
+    wire as ``codec_frame`` dicts, the App, the run's seconds)."""
+    import importlib
+
+    from vision_processor_tpu_torch.proto import SSL_WrapperPacket
+
+    camera = importlib.import_module(f"{pkg}.io.camera")
+
+    class Camera(camera.CameraDriver):
+        def __init__(self):
+            self.i = 0
+
+        @property
+        def fmt(self):
+            return "RGGB"
+
+        def expected_frametime(self):
+            return 0.01
+
+        def get_time(self):
+            return self.i / 100.0
+
+        def read_image(self):
+            if self.i >= len(raws):
+                return None
+            if self.i:
+                time.sleep(CODEC_GAP_S)
+            if self.i == len(raws) - 1 and last is not None:
+                last()
+            self.i += 1
+            return camera.RawFrame(data=raws[self.i - 1], fmt="RGGB", width=size[0],
+                                   height=size[1])
+
+    camera.register_driver("SMOKE_CODEC", lambda cam_cfg: Camera())
+    bus, wire = GeometryBus(packet), Datagrams(CODEC_GROUP, CODEC_PORT)
+    cwd = os.getcwd()
+    os.chdir(cfg_path.parent)  # the snapshots go under the working directory
+    try:
+        app = importlib.import_module(f"{pkg}.app.main").App(str(cfg_path), **app_kw)
+        bus.attach(app.socket)
+        bus.publish()
+        t0 = time.perf_counter()
+        app.run()  # to the camera's end; closes the App
+        wall = time.perf_counter() - t0
+        time.sleep(0.3)  # the last datagrams
+    finally:
+        os.chdir(cwd)
+        wire.close()
+    frames = []
+    for data in wire.got:
+        wrapper = SSL_WrapperPacket()
+        wrapper.ParseFromString(data)
+        if wrapper.HasField("detection"):
+            frames.append(codec_frame(wrapper.detection))
+    return frames, app, wall
+
+
+def codec_frame(d) -> dict:
+    """A detection frame as the witness keeps it: its number, the robots
+    [team, id, x, y] and the balls [x, y], sorted."""
+    return {"number": d.frame_number,
+            "bots": sorted([team, r.robot_id, r.x, r.y]
+                           for team, robots in (("y", d.robots_yellow), ("b", d.robots_blue))
+                           for r in robots),
+            "balls": sorted([b.x, b.y] for b in d.balls)}
+
+
+def codec_verdict(frames: list, scenes: list, want: dict, mode: str = "warp",
+                  launches: dict | None = None) -> tuple[dict, list]:
+    """The codec phase's readings and what fails it: one detection frame a
+    scene; in every frame after the first each planted robot named within
+    30 mm and the ball within 40 mm; in every frame the robots (team, id)
+    and the count of balls the JAX package's (``want``, JAX_CODEC_FOUND's
+    shape), each position within CODEC_ERR_MM of its; the resample mode
+    warp; ``launches`` (where given) CODEC_LAUNCHES a frame and nothing
+    else."""
+    bad = []
+    if mode != "warp":
+        bad.append(f"\"auto\" resolved to {mode!r}, expected 'warp'")
+    if launches is not None:
+        want_n = {k: CODEC_LAUNCHES.get(k, 0) * len(scenes) for k in launches}
+        wrong = {k: (launches[k], n) for k, n in want_n.items() if launches[k] != n}
+        if wrong:
+            bad.append(f"launched (got, expected) {wrong}")
+    if [f["number"] for f in frames] != list(range(1, len(scenes) + 1)):
+        bad.append(f"detection frames {[f['number'] for f in frames]}, expected 1.."
+                   f"{len(scenes)}")
+    ids, jax_ids, bot_errs, ball_errs, diffs = [], [], [], [], []
+    for k, (f, scene, w) in enumerate(zip(frames, scenes, want["frames"])):
+        found = {(t, i): (x, y) for t, i, x, y in f["bots"]}
+        errs = []
+        for b in scene.bots:
+            at = found.get(("b" if b.team == "blue" else "y", b.bot_id))
+            errs.append(math.inf if at is None else math.hypot(at[0] - b.x, at[1] - b.y))
+        ball = scene.balls[0]
+        berr = min((math.hypot(x - ball.x, y - ball.y) for x, y in f["balls"]),
+                   default=math.inf)
+        bot_errs.append(max(errs))
+        ball_errs.append(berr)
+        ids.append([b[:2] for b in f["bots"]])
+        jax_ids.append([b[:2] for b in w["bots"]])
+        if k and (max(errs) > 30.0 or berr > 40.0):
+            bad.append(f"frame {k + 1}: robots {sorted(found)} worst {max(errs):.2f} mm, "
+                       f"ball {berr:.2f} mm (bars 30 / 40 mm)")
+        if ids[-1] != jax_ids[-1] or len(f["balls"]) != len(w["balls"]):
+            bad.append(f"frame {k + 1}: robots {ids[-1]} and {len(f['balls'])} balls, the "
+                       f"JAX package {jax_ids[-1]} and {len(w['balls'])}")
+            continue
+        pairs = ([(a[2:], b[2:]) for a, b in zip(f["bots"], w["bots"])]
+                 + list(zip(f["balls"], w["balls"])))
+        diff = max((math.hypot(a[0] - b[0], a[1] - b[1]) for a, b in pairs), default=0.0)
+        diffs.append(diff)
+        if diff > CODEC_ERR_MM:
+            bad.append(f"frame {k + 1}: a detection {diff:.4f} mm from the JAX package's "
+                       f"(within {CODEC_ERR_MM} mm)")
+    out = {"frames": len(frames), "ids": ids, "jax_ids": jax_ids,
+           "max_bot_err_mm": bot_errs, "ball_err_mm": ball_errs,
+           "max_diff_from_jax_mm": max(diffs, default=math.inf)}
+    return out, bad
+
+
+def run_codec(torch, recorder, card: str) -> dict:
+    """tests/test_codec_roundtrip.py on the card at the rig's full width:
+    camera 0 of the bench rig (960x540 model, 1080p RGGB) over the soak
+    loop's plain entries, through the port's H.264 encoder and cv2's
+    decoder (``codec_bank``), into the port's ``App`` on the card under
+    config.yml as shipped (``codec_config``: stream on, "auto" resample)
+    through a registered driver, detections recorded off CODEC_GROUP.
+    Fails unless (a) the decoded frames' digest is the JAX witness's
+    (``JAX_CODEC_FOUND``); (b) ``codec_verdict`` finds nothing: 30 / 40
+    mm, ids and positions the JAX package's, "auto" resolved to warp and
+    every frame launching CODEC_LAUNCHES, nothing else; (c) B1-B4 on the
+    last frame's inputs equal their plain versions (``_check_recorded``).
+    Prints the digests, ids, errors, the phase's seconds and B1-B4's max
+    abs err."""
+    phase("codec round trip: the App on H.264-decoded frames at the rig's full width")
+    import numpy as np
+
+    from vision_processor_tpu_torch.bench import build_rig
+    from vision_processor_tpu_torch.ops import cuda as K
+
+    t0 = time.perf_counter()
+    rig = build_rig(N_CAMS, dense=True, dense_blobs=1900, resampling_factor=1.25,
+                    return_scenes=True, raws=np.zeros((N_CAMS, 1080, 1920), np.uint8),
+                    device=torch.device("cuda", 0))
+    geometry, cams = rig[7], rig[8]
+    bank = codec_bank(cams, geometry, rig[9], OUT / "codec" / "codec.h264")
+    size = tuple(int(v) for v in cams[0][0].size)
+    print(f"codec round trip: {len(bank['raws'])} frames of camera 0 ({size[0]}x{size[1]} "
+          f"model, {bank['raws'][0].shape[1]}x{bank['raws'][0].shape[0]} RGGB), H.264 qp "
+          f"{CODEC_QP} {bank['stream_bytes']} bytes, mean change of a pixel value "
+          f"{bank['mean_abs']:.3f}; decoded digest {bank['digest']}, the witness's "
+          f"{JAX_CODEC_FOUND['digest']}")
+    if bank["digest"] != JAX_CODEC_FOUND["digest"]:
+        fail("codec round trip: the decoded frames differ from the witness's")
+
+    def last():  # the last frame's kernel inputs, for (c)
+        for calls in recorder.calls.values():
+            calls.clear()
+        recorder.on = True
+
+    K.reset_launches()
+    try:
+        frames, app, run_s = codec_app_run(
+            "vision_processor_tpu_torch", codec_config(OUT / "codec"), bank["raws"], size,
+            geometry_packet(geometry, 0), last, device=torch.device("cuda", 0))
+    finally:
+        recorder.on = False
+    launches = dict(K.LAUNCHES)
+    kept = {name: list(recorder.calls[name]) for name in CODEC_LAUNCHES}
+    for calls in recorder.calls.values():
+        calls.clear()
+    mode = app.processor.resample_mode
+    got, bad = codec_verdict(frames, bank["scenes"], JAX_CODEC_FOUND, mode, launches)
+    errs = _check_recorded(torch, {"codec": kept}, "the codec round trip's last frame")
+    wall = time.perf_counter() - t0
+    print(f"codec round trip: App on the card (stream {app.streamer.codec}, {mode}); "
+          f"{got['frames']} detection frames; ids {got['ids']} (JAX {got['jax_ids']}); worst "
+          f"robot error a frame {[round(e, 3) for e in got['max_bot_err_mm']]} mm (bar 30 "
+          f"after the first), ball {[round(e, 3) for e in got['ball_err_mm']]} mm (bar 40); "
+          f"largest distance from the JAX package's detections "
+          f"{got['max_diff_from_jax_mm']:.6f} mm (within {CODEC_ERR_MM}); launches "
+          f"{ {k: v for k, v in launches.items() if v} }; B1-B4 max abs err against their "
+          f"plain versions {errs}; run {run_s:.3f} s, phase {wall:.1f} s ({card})")
+    if bad:
+        fail("codec round trip: " + "; ".join(bad))
+    return {**got, "digest": bank["digest"], "stream_bytes": bank["stream_bytes"],
+            "mean_abs": bank["mean_abs"], "mode": mode, "launches": launches,
+            "max_abs_err": errs, "run_s": run_s, "seconds": wall, "card": card}
 
 
 def _e1_inputs(torch):
@@ -4956,24 +5302,31 @@ def _check_e5(torch, contract, before):
     return res
 
 
-def _check_perturbed(torch, calls_by_profile: dict) -> dict:
-    """B2, B3 and B4 on every call of the degraded-optics phase's kept
-    frame-set a profile: B2 bit-equal to its plain version with the count
-    equal, B3 every slot select_m's and values and valid indices the plain
-    version's, B4 every slot the plain version's. Returns each kernel's max
-    abs err."""
+def _check_recorded(torch, calls_by_set: dict, label: str) -> dict:
+    """B1-B4 on the calls a phase recorded (a list of calls a kernel, by
+    set): B1 against its plain version (max abs err), B2 bit-equal to its
+    plain version with the count equal, B3 every slot select_m's and values
+    and valid indices the plain version's, B4 every slot the plain
+    version's. Returns each kernel's max abs err."""
     import vision_processor_tpu_torch.ops.blob_fused as BF
     import vision_processor_tpu_torch.ops.topk as T
+    import vision_processor_tpu_torch.ops.warp as W
 
+    band_pass = W.band_pass.__wrapped__
     fused = BF.blob_response_fused.__wrapped__
     row_topk, query = T.row_topk.__wrapped__, T.query_select_topk.__wrapped__
-    err = {"B2": 0.0, "B3": 0.0, "B4": 0.0}
+    err = {"B1": 0.0, "B2": 0.0, "B3": 0.0, "B4": 0.0}
     seen = []
-    for profile, calls in calls_by_profile.items():
+    for name, calls in calls_by_set.items():
+        for (src, pos), _ in calls.get("band_pass", []):
+            e = float((band_pass(src, pos) - W._band_pass_plain(src, pos)).abs().max())
+            if not e <= 1e-3:
+                fail(f"band_pass ({name}): max abs err {e:.3g} against its plain version")
+            err["B1"] = max(err["B1"], e)
         for args, kw in calls["blob_response_fused"]:
             same, n, e = _b2_equal(torch, fused, *args, **kw)
             if not same:
-                fail(f"blob_response_fused ({profile}): not bit-equal to its plain version "
+                fail(f"blob_response_fused ({name}): not bit-equal to its plain version "
                      f"(max abs err {e:.3g}) or its count differs")
             err["B2"] = max(err["B2"], e)
         for (x, m), _ in calls["row_topk"]:
@@ -4981,28 +5334,31 @@ def _check_perturbed(torch, calls_by_profile: dict) -> dict:
             valid = v_p > float("-inf")
             if not (_same_slots(torch, got, T.select_m(x, m)) and torch.equal(got[0], v_p)
                     and torch.equal(got[1][valid], i_p[valid])):
-                fail(f"row_topk ({profile}, m={m}): a slot differs from select_m's or the "
+                fail(f"row_topk ({name}, m={m}): a slot differs from select_m's or the "
                      f"plain version's")
         for (a, b, c, d), kw in calls["query_select_topk"]:
             want = T._query_select_plain(a, b, c, d, kw["m"], kw["by_rank"])
             if not _same_slots(torch, query(a, b, c, d, **kw), want):
-                fail(f"query_select_topk ({profile}, Q={a.shape[0]}, m={kw['m']}): a slot "
+                fail(f"query_select_topk ({name}, Q={a.shape[0]}, m={kw['m']}): a slot "
                      f"differs from the plain version's")
-        seen.append(f"{profile}: B2 {len(calls['blob_response_fused'])}, B3 "
-                    f"{len(calls['row_topk'])}, B4 {len(calls['query_select_topk'])} calls")
-    print(f"B2, B3, B4 on the degraded-optics frame-sets: equal to their plain versions "
-          f"({'; '.join(seen)})")
+        seen.append(f"{name}: " + ", ".join(
+            f"{row} {len(calls.get(key, []))}" for row, key in (
+                ("B1", "band_pass"), ("B2", "blob_response_fused"), ("B3", "row_topk"),
+                ("B4", "query_select_topk")) if key in calls) + " calls")
+    print(f"B1-B4 on {label}: equal to their plain versions ({'; '.join(seen)})")
     return err
 
 
 def check_kernels(torch, s1: dict, s2: dict, s3: dict, s4: dict, s4f1: dict,
-                  contracts: dict, bench: dict, soak: dict, perturbed: dict, before) -> list:
+                  contracts: dict, bench: dict, soak: dict, perturbed: dict, codec: dict,
+                  before) -> list:
     """Each kernel on the last frame's inputs of the slice whose path it
     belongs to: B1-B4 slice 1's, B5-B7 slice 2's, E4 slice 3's, E2/E3 slice
     4's; E1 and E5 on their contract run's inputs; B2 and B5 also on slice
     4's factor-1.0 map, B3 and B4 also on the bench's and the soak's dense
     frame-sets, beside the other checkout's where ``before`` has it; B2, B3
-    and B4 also on the degraded-optics phase's frame-sets."""
+    and B4 also on the degraded-optics phase's frame-sets; every row's max
+    abs err also over the codec round trip's B1-B4 (held in that phase)."""
     phase("kernels vs plain")
     one = torch.zeros(1, device="cuda")
     floor = time_fn(torch, one.zero_)
@@ -5010,7 +5366,9 @@ def check_kernels(torch, s1: dict, s2: dict, s3: dict, s4: dict, s4f1: dict,
           f"{_fmt(floor)}")
     c1, c2, c3, c4 = s1["calls"], s2["calls"], s3["calls"], s4["calls"]
     b2_f1 = s4f1["calls"]["blob_response_fused"]
-    degraded = _check_perturbed(torch, perturbed["calls"])
+    recorded = _check_recorded(torch, perturbed["calls"], "the degraded-optics frame-sets")
+    for row, e in codec["max_abs_err"].items():
+        recorded[row] = max(recorded[row], e)
     rows = [
         ("B1", _check_b1(torch, c1["band_pass"])),
         ("B2", _check_b2(torch, c1["blob_response_fused"], b2_f1, before)),
@@ -5029,8 +5387,8 @@ def check_kernels(torch, s1: dict, s2: dict, s3: dict, s4: dict, s4f1: dict,
         ("E5", _check_e5(torch, contracts, before)),
     ]
     for row, res in rows:
-        if row in degraded:
-            res["err"] = max(res["err"], degraded[row])
+        if row in recorded:
+            res["err"] = max(res["err"], recorded[row])
     return rows
 
 
@@ -5091,6 +5449,7 @@ def main() -> None:
     bench = run_bench(torch, recorder)
     soak = run_soak(torch, recorder, card, soak_frames)
     perturbed = run_perturbation(torch, recorder, card)
+    codec = run_codec(torch, recorder, card)
     contracts = run_contracts(torch)
     for label, s, unit in (("slice 1 (warp, score-first)", s1, "frame"),
                            ("slice 2 (gather, circ-first, fused combo)", s2, "frame"),
@@ -5118,7 +5477,7 @@ def main() -> None:
         s4["profile"] = profile_frames(torch, s4["run"], STAGES_SLICE4, "slice 4",
                                        "frame-set")
     results = check_kernels(torch, s1, s2, s3, s4, s4f1, contracts, bench, soak, perturbed,
-                            before)
+                            codec, before)
     # E3 computes E2's function: one kernel, one measurement, two rows
     e2 = dict(results)["E2"]
     results.insert([row for row, _ in results].index("E4"),
@@ -5166,6 +5525,7 @@ def main() -> None:
         "bench": {k: v for k, v in bench.items() if k != "dense_calls"},
         "soak": {k: v for k, v in soak.items() if k != "dense_calls"},
         "degraded optics": {k: v for k, v in perturbed.items() if k != "calls"},
+        "codec round trip": codec,
     }, indent=1))
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))

@@ -21,8 +21,9 @@ the JAX package on the conftest's 8 virtual CPU devices and compares:
     within 1e-4 relative (tests/test_torch_multicam.py's tolerances);
 (b) the same runs against the port's ``batched_step(rs_grids=None)`` over
     all cameras in this process, bit for bit (the JAX package's
-    ``run_production_parity_check`` at small size), the plain step equal
-    to the fused one's first three outputs;
+    ``run_production_parity_check`` at small size), the plain step (fed
+    the colour table the fused step fed itself) equal to the fused one's
+    first three outputs;
 (c) ``sharded_rollout`` on the world of 2 with a robot crossing from
     camera 0's view into camera 1's: camera 1 first sees it through the
     tracked search seeded by the gathered summaries, and every per-frame
@@ -93,19 +94,22 @@ def worker(run_dir: Path, rank: int, world: int, kind: str) -> None:
     params = to_torch(part("params", cams=False), dev)
     marks = to_torch(part("marks", cams=False), dev)
     out = {}
-    for fused in (False, True):
+    # the plain step finishes nothing on the device: it takes the colour
+    # table the fused step fed itself at the same frame-set
+    fed = [cams["colors"]]
+    for fused in (True, False):
         step = M.sharded_step(cfg, group, fused=fused)
-        prev, colors = M.empty_summary(cfg, dev), cams["colors"]
+        prev = M.empty_summary(cfg, dev)
         name = "fused" if fused else "plain"
         for f in range(STEP_FRAME_SETS):
             raws = torch.from_numpy(data[f"raws{f}"][mine]).to(dev)
-            res = step(raws, cams["packed"], cams["scales"], cams["offsets"], colors, prev,
+            res = step(raws, cams["packed"], cams["scales"], cams["offsets"], fed[f], prev,
                        params, *((cams["refs"], marks) if fused else ()))
             for key, tree in zip(("blobs", "det", "gathered", "fin"), to_numpy(res)):
                 _flat(f"{name}.{f}.{key}", tree, out)
             prev = res[2]
             if fused:
-                colors = res[3]["colors7"]
+                fed.append(res[3]["colors7"])
     if "bank" in data:
         roll = M.sharded_rollout(cfg, group, ROLL_FRAMES)
         res = roll(torch.from_numpy(data["bank"][:, mine]).to(dev), cams["packed"],
@@ -477,21 +481,21 @@ def test_sharded_step_equals_batched_step(worlds, world):
     _assert_equals_batched(_batched(data, spec, "cpu"), outs)
 
 
-def test_sharded_rollout_hands_off_across_cameras(worlds):
-    """(c) the world of 2 through ``sharded_rollout``: yellow 9 walks from
-    camera 0's view into camera 1's. Camera 0 identifies it from the first
-    frame; camera 1 first sees it on a later frame through the tracked
-    search (its tracked id 9, seeded by the gathered summaries), and the
-    tracked ids, validity, positions and gathered summaries equal the JAX
-    rollout's on a 2-device mesh."""
+def check_handoff(data: dict, spec: dict, outs: list, world: int) -> None:
+    """The world's ``sharded_rollout`` (yellow 9 walking from camera 0's
+    view into camera 1's) against the JAX rollout on a ``world``-device
+    mesh: tracked ids, validity and gathered summary ids equal, positions
+    within 0.5 mm. Camera 0 identifies the bot from the first frame;
+    camera 1 first sees it on a later frame through the tracked search
+    (its tracked id 9, seeded by the gathered summaries) and keeps it in
+    the summary from then on."""
     import jax
     import jax.numpy as jnp
 
     from vision_processor_tpu.parallel import multicam as JM
 
-    data, spec, outs = worlds[2]
     jcfg, _ = _configs(spec)
-    roll = JM.sharded_rollout(jcfg, JM.make_camera_mesh(jax.devices()[:2]), ROLL_FRAMES)
+    roll = JM.sharded_rollout(jcfg, JM.make_camera_mesh(jax.devices()[:world]), ROLL_FRAMES)
     params = {k: jnp.asarray(v) for k, v in _tree(data, "roll_params").items()}
     j = jax.device_get(roll(data["bank"], data["packed"], data["scales"], data["offsets"],
                             data["colors"], params))
@@ -515,6 +519,13 @@ def test_sharded_rollout_hands_off_across_cameras(worlds):
     assert tids[k0, 1, np.flatnonzero(valid[k0, 1])[0]] == ROLL_BOT
     # the id persists in the gathered summary from camera 1 once it is there
     assert all(ROLL_BOT in sids[k, 1] for k in range(k0, ROLL_FRAMES))
+
+
+def test_sharded_rollout_hands_off_across_cameras(worlds):
+    """(c) the world of 2 through ``sharded_rollout``: ``check_handoff``
+    on a 2-device mesh."""
+    data, spec, outs = worlds[2]
+    check_handoff(data, spec, outs, 2)
 
 
 @pytest.mark.parametrize("n_cams,world", [(3, 2), (4, 3), (2, 4)])

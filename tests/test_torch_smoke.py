@@ -334,3 +334,116 @@ def test_perturb_bank_gives_the_witness_digests(smoke):
         assert len(want["digests"]) == len(want["ids"]) == len(want["ball"]) == 4
         if row[0] == "light":
             assert want["digests"][0] == bank["digests"]["light"][0]
+
+
+@pytest.fixture(scope="module")
+def codec(smoke, tmp_path_factory):
+    """The codec phase's frames and geometry on the CPU (``codec_bank``)."""
+    from vision_processor_tpu_torch.bench import build_rig
+    from vision_processor_tpu_torch.io.native import H264Encoder
+
+    try:
+        H264Encoder(qp=smoke.CODEC_QP)
+    except RuntimeError:
+        pytest.skip("native library unavailable")
+    rig = build_rig(4, dense=True, dense_blobs=1900, resampling_factor=1.25,
+                    return_scenes=True, raws=np.zeros((4, 1080, 1920), np.uint8),
+                    device="cpu")
+    path = tmp_path_factory.mktemp("codec") / "codec.h264"
+    return rig, smoke.codec_bank(rig[8], rig[7], rig[9], path)
+
+
+def test_codec_bank_gives_the_witness_digest(smoke, codec):
+    """Camera 0's frames through the encoder and cv2, here: the digest
+    JAX_CODEC_FOUND holds (the frames the card's phase must see), six 1080p
+    RGGB raws, a codec that changed the pixels."""
+    _, bank = codec
+    assert bank["digest"] == smoke.JAX_CODEC_FOUND["digest"]
+    assert [r.shape for r in bank["raws"]] == [(1080, 1920)] * len(smoke.CODEC_ENTRIES)
+    assert all(r.dtype == np.uint8 for r in bank["raws"])
+    assert bank["mean_abs"] > 0.1
+    assert len(smoke.JAX_CODEC_FOUND["frames"]) == len(bank["scenes"])
+
+
+def test_codec_config_is_config_yml_with_the_phase_changes(smoke, tmp_path):
+    """``codec_config``: config.yml as shipped but for the driver, the
+    addresses, (stream=False) the stream and (mode) the resample mode."""
+    import yaml
+
+    shipped = yaml.safe_load((ROOT / "config.yml").read_text())
+    changed = ("camera", "network", "stream", "thresholds")
+    for stream, mode in ((True, None), (False, "warp")):
+        got = yaml.safe_load(smoke.codec_config(tmp_path / str(stream), stream, mode)
+                             .read_text())
+        assert got["camera"]["driver"] == "SMOKE_CODEC"
+        assert got["network"]["vision_ip"] == smoke.CODEC_GROUP
+        assert got["stream"]["ip_base_end"] == smoke.CODEC_STREAM_END
+        assert got["stream"].get("active", True) is stream
+        th = dict(got["thresholds"])
+        assert th.pop("resample_mode", None) == mode
+        assert th == shipped["thresholds"]
+        assert {k: v for k, v in got.items() if k not in changed} \
+            == {k: v for k, v in shipped.items() if k not in changed}
+
+
+def test_codec_phase_app_on_the_cpu_equals_the_witness(smoke, codec, tmp_path):
+    """The phase's App run (``codec_app_run``: the SMOKE_CODEC driver, the
+    GeometryBus, the wire recorder) with the port's App on the CPU, in the
+    warp resample that "auto" takes on the card: one
+    detection frame a scene, ``last`` called once before the last frame,
+    and ``codec_verdict`` clears every bar, its printed keys all there."""
+    rig, bank = codec
+    size = tuple(int(v) for v in rig[8][0][0].size)
+    calls = []
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        frames, app, run_s = smoke.codec_app_run(
+            "vision_processor_tpu_torch", smoke.codec_config(tmp_path, False, "warp"),
+            bank["raws"], size, smoke.geometry_packet(rig[7], 0), lambda: calls.append(1),
+            device="cpu")
+    finally:
+        torch.set_num_threads(n)
+    assert calls == [1] and run_s > 0
+    got, bad = smoke.codec_verdict(frames, bank["scenes"], smoke.JAX_CODEC_FOUND,
+                                   app.processor.resample_mode)
+    assert bad == []
+    assert sorted(got) == ["ball_err_mm", "frames", "ids", "jax_ids", "max_bot_err_mm",
+                           "max_diff_from_jax_mm"]
+    assert got["frames"] == len(bank["scenes"]) and got["ids"] == got["jax_ids"]
+    assert got["max_diff_from_jax_mm"] <= smoke.CODEC_ERR_MM
+
+
+def test_codec_verdict_fails_a_missed_bar(smoke, codec):
+    """A robot 35 mm off, a robot 1.5 mm from the JAX package's, a renamed
+    robot, a lost frame, the gather path or a wrong launch count each fails
+    the phase; the witness's own frames pass."""
+    import copy
+
+    _, bank = codec
+    want, scenes = smoke.JAX_CODEC_FOUND, bank["scenes"]
+    n = len(scenes)
+    launches = {k: v * n for k, v in smoke.CODEC_LAUNCHES.items()}
+    launches["corner_stack"] = 0
+    assert smoke.codec_verdict(want["frames"], scenes, want, "warp", launches)[1] == []
+
+    def moved(frame: int, dx: float, rename: bool = False):
+        frames = copy.deepcopy(want["frames"])
+        bot = frames[frame]["bots"][0]
+        bot[2] += dx
+        if rename:
+            bot[1] = 9
+        return frames
+
+    for frames, why in ((moved(2, 35.0), "bars 30 / 40 mm"),
+                        (moved(0, 1.5), "from the JAX package's"),
+                        (moved(4, 0.0, rename=True), "the JAX package"),
+                        (want["frames"][:-1], "detection frames")):
+        bad = smoke.codec_verdict(frames, scenes, want)[1]
+        assert bad and any(why in b for b in bad), (why, bad)
+    assert smoke.codec_verdict(want["frames"], scenes, want, "gather")[1]
+    assert smoke.codec_verdict(want["frames"], scenes, want, "warp",
+                               dict(launches, band_pass=2 * n - 1))[1]
+    with pytest.raises(SystemExit):
+        smoke.fail("codec round trip: " + "; ".join(
+            smoke.codec_verdict(moved(2, 35.0), scenes, want)[1]))
