@@ -42,7 +42,7 @@ from ..ops.cuda import DEVICE_ERRORS, require_device
 from ..ops.frame import quad2rgba, raw2quad
 from ..utils.config import VisionConfig
 from ..utils.log import get_logger
-from ..utils.timing import FrameStats, StageTimer
+from ..utils.timing import RECORDER, FrameStats, StageTimer, log_means
 from .debug_io import emit_debug_views, emit_idle_raw, snapshot_due
 from .processor import Processor, TrackedArrays
 
@@ -113,6 +113,8 @@ class App:
 
     def run(self):
         frame_id = 0
+        if self.benchmark:
+            RECORDER.enable()
         while self.running:
             if self.config.reload_if_changed():
                 self.processor.apply_tunables()
@@ -193,8 +195,7 @@ class App:
             )
         if self.benchmark and self.processor.frame_id % 100 == 0:
             log.info("frame stats: %s", self.frame_stats.summary())
-            self.frame_stats_timer.print_runtimes()
-            self.frame_stats_timer.clear()
+            log_means(RECORDER.drain())
 
         self._stream_and_snapshot(frame, real_start)
 
@@ -242,6 +243,8 @@ class App:
             self._last_snapshot = real_start
 
     def close(self):
+        if self.benchmark:
+            RECORDER.disable()
         self.streamer.close()
         self.snapshots.close()
         self.socket.close()

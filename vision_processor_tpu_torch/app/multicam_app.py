@@ -60,6 +60,7 @@ from ..parallel.multicam import (
 from ..utils.config import VisionConfig
 from ..utils.log import get_logger
 from ..utils.state import to_numpy, to_torch
+from ..utils.timing import RECORDER, log_means
 from .debug_io import emit_debug_views, emit_idle_raw
 from .main import calibration_packet, demosaic
 from .processor import Processor, TrackedArrays
@@ -194,6 +195,7 @@ class MultiCamApp:
             return True
         if any(pp.geometry_version == 0 for pp in persp):
             return False  # every camera must be calibrated first
+        RECORDER.count("rebuild.step", 1)
         ref = persp[0]
         bm = BlobMachineConfig(
             fmt=fmt,
@@ -250,34 +252,35 @@ class MultiCamApp:
         delivered nothing this set; ``pending[c]`` is True when that None is
         an in-flight read, False when the read completed with None (end of
         stream)."""
-        futs = {}
-        for c, cam in enumerate(self.cameras):
-            pending = self._read_pending.get(c)
-            futs[c] = pending if pending is not None else self._pool.submit(cam.read_image)
-        frames, pending = [], []
-        for c in range(self.n_cams):
-            f = futs[c]
-            if self._stale_prev[c] and not f.done():
-                self._read_pending[c] = f  # poll again next frame-set
-                frames.append(None)
-                pending.append(True)
-                continue
-            if not self._stale_prev[c] and self._last_frames is not None:
-                budget = self.cameras[c].expected_frametime() or (1.0 / 30.0)
-                try:
-                    frame = f.result(timeout=max(2.0 * budget, 5.0))
-                except FutTimeout:
-                    # first failing read: outage, the read left in flight
-                    self._read_pending[c] = f
+        with RECORDER.span("read", frame_set=RECORDER.frame_set + 1):
+            futs = {}
+            for c, cam in enumerate(self.cameras):
+                pending = self._read_pending.get(c)
+                futs[c] = pending if pending is not None else self._pool.submit(cam.read_image)
+            frames, pending = [], []
+            for c in range(self.n_cams):
+                f = futs[c]
+                if self._stale_prev[c] and not f.done():
+                    self._read_pending[c] = f  # poll again next frame-set
                     frames.append(None)
                     pending.append(True)
                     continue
-            else:
-                frame = f.result()
-            self._read_pending.pop(c, None)
-            frames.append(frame)
-            pending.append(False)
-        return frames, pending
+                if not self._stale_prev[c] and self._last_frames is not None:
+                    budget = self.cameras[c].expected_frametime() or (1.0 / 30.0)
+                    try:
+                        frame = f.result(timeout=max(2.0 * budget, 5.0))
+                    except FutTimeout:
+                        # first failing read: outage, the read left in flight
+                        self._read_pending[c] = f
+                        frames.append(None)
+                        pending.append(True)
+                        continue
+                else:
+                    frame = f.result()
+                self._read_pending.pop(c, None)
+                frames.append(frame)
+                pending.append(False)
+            return frames, pending
 
     def _fleet_params(self) -> dict:
         """Merged per-frame params (numpy): per-camera tunables become (N,)
@@ -308,6 +311,7 @@ class MultiCamApp:
         grid_key = (self.mc_cfg.bm, packed.tobytes(), scales.tobytes(),
                     offsets.tobytes(), maxh)
         if self._grid_key != grid_key:
+            RECORDER.count("rebuild.grids", 1)
             self._grids = make_resample_grids(self.mc_cfg, packed, maxh, scales, offsets,
                                               self.device)
             self._grid_key = grid_key
@@ -316,6 +320,7 @@ class MultiCamApp:
                          tuple(p.perspective.geometry_version for p in procs),
                          tuple(c.geometry_tolerance for c in self.configs))
             if self._marks_key != marks_key:
+                RECORDER.count("rebuild.marks", 1)
                 per_cam = [pack_field_marks(p.perspective.field, c.geometry_tolerance)
                            for p, c in zip(procs, self.configs)]
                 self._marks = to_torch({k: np.stack([m[k] for m in per_cam])
@@ -338,13 +343,21 @@ class MultiCamApp:
         on-device finishing), or None while a camera is uncalibrated.
         ``tracked``: the fleet's tracked prior; by default built from the
         wire (the first socket's tracker)."""
-        fmt = frames[0].fmt
-        if not self._ensure_step(fmt, frames[0].data.shape):
-            return None
-        if tracked is None:
-            tracked = TrackedArrays.build(self.sockets[0].get_tracked_objects(), now,
-                                          self.processors[0].det_cfg.max_tracked)
-        state, grids = self._device_inputs(tracked)
+        RECORDER.begin_frame_set()
+        with RECORDER.span("dispatch"):
+            out = self._dispatch(frames, now, tracked)
+            RECORDER.reduce_rounds()
+        return out
+
+    def _dispatch(self, frames, now, tracked):
+        with RECORDER.span("dispatch.inputs"):
+            fmt = frames[0].fmt
+            if not self._ensure_step(fmt, frames[0].data.shape):
+                return None
+            if tracked is None:
+                tracked = TrackedArrays.build(self.sockets[0].get_tracked_objects(), now,
+                                              self.processors[0].det_cfg.max_tracked)
+            state, grids = self._device_inputs(tracked)
         colors, refs = state["colors"], None
         if self._marks is not None:
             # the colour chain carried on the card (Processor._colors_dev's
@@ -355,7 +368,8 @@ class MultiCamApp:
         if self.staggered:
             blobs, det, fin = self._dispatch_staggered(frames, state, colors, grids, refs)
         else:
-            raws = torch.from_numpy(np.stack([f.data for f in frames])).to(self.device)
+            with RECORDER.span("dispatch.inputs"):
+                raws = torch.from_numpy(np.stack([f.data for f in frames])).to(self.device)
             out = self._step(raws, state["packed"], state["scales"], state["offsets"],
                              colors, state["tracked"], state["params"], grids, refs,
                              self._marks)
@@ -369,48 +383,67 @@ class MultiCamApp:
         then one batched tail: equal to the batched step."""
         outs = []
         for c in range(self.n_cams):
-            raw = torch.from_numpy(np.ascontiguousarray(frames[c].data)).to(self.device)
+            with RECORDER.span("dispatch.inputs", camera=c):
+                raw = torch.from_numpy(np.ascontiguousarray(frames[c].data)).to(self.device)
             outs.append(self._core_step(
                 raw, state["packed"][c], state["scales"][c], state["offsets"][c],
                 colors[c], state["tracked"], params_for_cam(state["params"], c),
-                _cam(grids, c)))
+                _cam(grids, c), camera=c))
         blobs = _stack([o[0] for o in outs])
         det = _stack([o[1] for o in outs])
         det, fin = self._tail_step(blobs, det, colors, state["packed"], state["params"],
                                    refs, self._marks)
         return blobs, det, fin
 
-    def finish_frames(self, out, now: float, frames, stale=None):
+    def finish_frames(self, out, now: float, frames, stale=None, frame_set: int | None = None):
         """Per-camera host finishing of one dispatched frame-set, fanned out
         on the pool after one device->host copy per dtype. ``stale[c]``
         marks a camera whose frame is a reused last-good one (outage): its
         state still advances, but nothing is sent for it and its entry in
-        the returned list is None."""
-        blobs, det, fin = to_numpy(tuple(out))
+        the returned list is None. ``frame_set``: the recorder's id of the
+        dispatch, by default the last one's."""
+        fs = RECORDER.frame_set if frame_set is None else frame_set
+        with RECORDER.span("finish", frame_set=fs) as span:
+            with RECORDER.span("finish.copy"):
+                blobs, det, fin = to_numpy(tuple(out))
+            RECORDER.read_rounds(fs)
 
-        def finish_one(c):
-            per_cam = ({k: v[c] for k, v in blobs.items()},
-                       {k: v[c] for k, v in det.items()})
-            if fin is not None:
-                per_cam += ({k: v[c] for k, v in fin.items()},)
-            wrapper, _, _ = self.processors[c].finish_frame(per_cam, now,
-                                                            frames[c].timestamp)
-            if stale is not None and stale[c]:
-                return None  # detections of a reused frame stay off the wire
-            if self.sockets:
-                wrapper.detection.t_sent = self.cameras[c].get_time()
-                self.sockets[c].send(wrapper)
-                self.sockets[c].update_time()
-            return wrapper
+            def finish_one(c):
+                per_cam = ({k: v[c] for k, v in blobs.items()},
+                           {k: v[c] for k, v in det.items()})
+                if fin is not None:
+                    per_cam += ({k: v[c] for k, v in fin.items()},)
+                with RECORDER.span("finish.camera", camera=c, frame_set=fs, parent=span.index):
+                    wrapper, _, _ = self.processors[c].finish_frame(per_cam, now,
+                                                                    frames[c].timestamp)
+                if stale is not None and stale[c]:
+                    return None  # detections of a reused frame stay off the wire
+                if self.sockets:
+                    with RECORDER.span("finish.send", camera=c, frame_set=fs,
+                                       parent=span.index):
+                        wrapper.detection.t_sent = self.cameras[c].get_time()
+                        self.sockets[c].send(wrapper)
+                        self.sockets[c].update_time()
+                return wrapper
 
-        return list(self._pool.map(finish_one, range(self.n_cams)))
+            return list(self._pool.map(finish_one, range(self.n_cams)))
 
-    def step_frames(self, frames, now: float, tracked: TrackedArrays | None = None):
-        """One frame-serial step (dispatch + finish)."""
+    def step_frames(self, frames, now: float, tracked: TrackedArrays | None = None,
+                    stale=None):
+        """One frame-set of the loop: dispatch it, then finish it
+        (frame-serial) or the frame-set dispatched before it (pipelined).
+        Returns (dispatched, wrappers): ``dispatched`` False while a camera
+        is uncalibrated, when only the in-flight frame-set is finished;
+        ``wrappers`` None where no frame-set was finished."""
         out = self.dispatch_frames(frames, now, tracked)
         if out is None:
-            return None
-        return self.finish_frames(out, now, frames)
+            return False, self._finish_pending()
+        if not self.pipeline:
+            return True, self.finish_frames(out, now, frames, stale)
+        pending = (out, now, frames, stale, RECORDER.frame_set, RECORDER.mark())
+        wrappers = self._finish_pending()
+        self._pending = pending
+        return True, wrappers
 
     def _calibrate_uncalibrated(self, frames) -> None:
         """Calibrate every camera that has field geometry on its socket and
@@ -520,12 +553,19 @@ class MultiCamApp:
         """Finish the in-flight frame-set, if any; returns its wrappers."""
         if self._pending is None:
             return None
-        out, fnow, fframes, fstale = self._pending
+        out, fnow, fframes, fstale, fs, t_dispatched = self._pending
         self._pending = None
-        return self.finish_frames(out, fnow, fframes, fstale)
+        RECORDER.record("pending", t_dispatched, RECORDER.mark(), fs)
+        return self.finish_frames(out, fnow, fframes, fstale, frame_set=fs)
 
     def run(self):
         frame_id = 0
+        # the fleet's counterpart of the App's per-stage log (reference
+        # src/main.cpp:363-366): each span's and counter's mean (the k-means
+        # rounds that still run among them) every 100 frame-sets and at the end
+        benchmark = os.environ.get("VPTPU_BENCHMARK", "") == "1"
+        if benchmark:
+            RECORDER.enable(device_counting=True)
         while self.running:
             for cfg, proc in zip(self.configs, self.processors):
                 if cfg.reload_if_changed():
@@ -564,22 +604,16 @@ class MultiCamApp:
             for proc, frame in zip(self.processors, frames):
                 proc.geometry_check(frame.width, frame.height)
             try:
-                out = self.dispatch_frames(frames, now)
-                if out is None:
-                    # some camera is uncalibrated: finish any in-flight set
-                    wrappers = self._finish_pending()
-                elif self.pipeline:
-                    wrappers = self._finish_pending()
-                    self._pending = (out, now, frames, stale)
-                else:
-                    wrappers = self.finish_frames(out, now, frames, stale)
+                # while some camera is uncalibrated only the in-flight set
+                # is finished
+                dispatched, wrappers = self.step_frames(frames, now, stale=stale)
             except (NotImplementedError, *DEVICE_ERRORS):
                 raise
             except Exception:  # keep the fleet alive on a transient failure
                 log.exception("frame set %d failed, continuing", frame_id)
                 self._pending = None
                 continue
-            if out is None:
+            if not dispatched:
                 # outside the per-frame guard, as below: a failure of the
                 # demosaic on the card or of the calibration code ends run().
                 # Calibrate what can be, and wait for the rest
@@ -592,7 +626,8 @@ class MultiCamApp:
                 if len(self._height_obs) >= self._height_obs_target:
                     self._refine_rig_height()
             try:
-                self._stream_and_snapshot(frames, frame_id, real_start)
+                with RECORDER.span("stream"):
+                    self._stream_and_snapshot(frames, frame_id, real_start)
             except (NotImplementedError, *DEVICE_ERRORS):
                 raise
             except Exception:
@@ -602,12 +637,17 @@ class MultiCamApp:
             if budget and processing > budget:
                 log.info("frame time overrun: %.1f ms for %d cameras",
                          processing * 1e3, self.n_cams)
+            if benchmark and frame_id % 100 == 0:
+                log_means(RECORDER.drain())
         try:
             self._finish_pending()
         except DEVICE_ERRORS:
             raise
         except Exception:
             log.exception("final pending frame set failed")
+        if benchmark:
+            log_means(RECORDER.drain())
+            RECORDER.disable()
         log.info("Stopping multi-camera vision_processor")
         self.close()
 

@@ -31,6 +31,7 @@ from itertools import combinations
 import numpy as np
 import torch
 
+from ..utils.timing import RECORDER
 from .camera import field2image_packed, image2field_packed
 from .pattern import (
     MIN_ROBOT_FRONT_DISTANCE,
@@ -241,7 +242,8 @@ def detection_hypotheses(cfg: DetectorConfig, blob_pos, blob_valid,
         rank = blob_rank
 
     # the tier choice of the JAX lax.cond, read on the host
-    n_valid = int(blob_valid.sum())
+    with RECORDER.span("sync.tier"):
+        n_valid = int(blob_valid.sum())
 
     def full_window():
         if a < k_all and blob_color is not None and colors is not None:
@@ -726,7 +728,10 @@ def _guarded_kmeans2(contrast, vals, c1_init, c2_init, iters: int = 24):
 
     ok = may_split & ~degenerate
     active = ok
+    kept = RECORDER.rounds("kmeans", iters)
     for _ in range(iters):
+        if kept is not None:
+            kept.append(active)
         d1 = _sqnorm_i(vals - c1[:, None, :])
         d2 = _sqnorm_i(vals - c2[:, None, :])
         assign1 = d1 < d2  # (B, 4)

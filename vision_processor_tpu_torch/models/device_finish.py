@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.timing import RECORDER
 from .camera import field2image_packed, goal_boundary_width, image2field_packed
 from .detector import _sqnorm, _sqnorm_i, _tables, estimate_bot_ids
 
@@ -73,7 +74,10 @@ def masked_kmeans2(contrast, vals, mask, c1_init, c2_init, iters: int = 24):
 
     ok = may_split & ~degenerate
     active = ok
+    kept = RECORDER.rounds("kmeans", iters)
     for _ in range(iters):
+        if kept is not None:
+            kept.append(active)
         d1 = _sqnorm_i(vals - c1)
         d2 = _sqnorm_i(vals - c2)
         assign1 = (d1 < d2) & mask

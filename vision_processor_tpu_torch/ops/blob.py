@@ -23,6 +23,8 @@ import math
 import numpy as np
 import torch
 
+from ..utils.timing import RECORDER
+
 _NEG_INF = float("-inf")
 
 
@@ -241,7 +243,8 @@ def compaction_tier(masked: torch.Tensor, max_blobs: int) -> tuple[str, int]:
     m = min(w, max(16, -(-4 * max_blobs // h)))
     if m == w:  # row stage degenerate: every row fits entirely
         return "stage", m
-    max_row = int((masked > _NEG_INF).sum(dim=1).amax())
+    with RECORDER.span("sync.tier"):
+        max_row = int((masked > _NEG_INF).sum(dim=1).amax())
     m_small = min(m, max(6, -(-max_blobs // h)))
     if m_small < m and h * m_small >= max_blobs and max_row <= m_small:
         return "stage", m_small

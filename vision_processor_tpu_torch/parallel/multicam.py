@@ -43,6 +43,7 @@ from ..models.detector import (
 )
 from ..models.device_finish import finish_on_device_batched, stack_finish_params
 from ..ops.pipeline import BlobMachineConfig, blob_machine
+from ..utils.timing import RECORDER
 
 _INF = float("inf")
 
@@ -99,18 +100,22 @@ class MultiCamConfig:
 
 
 def _single_cam_step(cfg: MultiCamConfig, raw, packed_cam, field_scale, field_offset,
-                     colors7, tracked, params, rs_grid=None, finalize: bool = True):
+                     colors7, tracked, params, rs_grid=None, finalize: bool = True,
+                     camera: int | None = None):
     """One camera's frame -> blob slots (+ detection summary).
 
     ``finalize=False`` returns ``(blobs, det)`` with the detections before
     the clipping NMS and without the id estimate or summary: callers
     stacking several cameras complete them with ``finalize_batched``.
-    Without ``rs_grid`` the frame is resampled in line."""
-    blobs = blob_machine(cfg.bm, raw, packed_cam, params["max_bot_height"],
-                         params["min_circularity"], field_scale=field_scale,
-                         field_offset=field_offset, rs_grid=rs_grid)
-    det = detect(cfg.det, blobs, tracked, colors7[:6], packed_cam, params,
-                 with_nms=finalize)
+    Without ``rs_grid`` the frame is resampled in line. ``camera``: the
+    camera of the recorder's spans."""
+    with RECORDER.span("step.blobs", camera=camera):
+        blobs = blob_machine(cfg.bm, raw, packed_cam, params["max_bot_height"],
+                             params["min_circularity"], field_scale=field_scale,
+                             field_offset=field_offset, rs_grid=rs_grid)
+    with RECORDER.span("step.detect", camera=camera):
+        det = detect(cfg.det, blobs, tracked, colors7[:6], packed_cam, params,
+                     with_nms=finalize)
     out_blobs = {k: blobs[k]
                  for k in ("field_pos", "color", "center", "circ", "score", "valid", "count")}
     if not finalize:
@@ -134,11 +139,12 @@ def finalize_batched(blobs, det, colors7, clipping_tolerance, ball_radius):
     stacked camera axis: clipping NMS and ball-clip mask, the id estimate
     folded over the camera axis, and the detection summary. Returns (det,
     summary), equal to the per-camera path's."""
-    det = finalize_detections_batched(det, blobs["field_pos"], blobs["valid"],
-                                      clipping_tolerance, ball_radius)
-    bot_id = estimate_bot_ids(det, blobs["color"], colors7)
-    det["bot_id_est"] = bot_id
-    return det, _summary(det, bot_id)
+    with RECORDER.span("step.finalize"):
+        det = finalize_detections_batched(det, blobs["field_pos"], blobs["valid"],
+                                          clipping_tolerance, ball_radius)
+        bot_id = estimate_bot_ids(det, blobs["color"], colors7)
+        det["bot_id_est"] = bot_id
+        return det, _summary(det, bot_id)
 
 
 def tracked_from_summaries(det_cfg: DetectorConfig, summaries, time_delta,
@@ -252,15 +258,16 @@ def _cores(cfg, raws, packed_cams, field_scales, field_offsets, colors7, tracked
         _single_cam_step(cfg, raws[c], packed_cams[c], field_scales[c], field_offsets[c],
                          colors7[c], tracked, params_for_cam(params, cam0 + c),
                          rs_grid=None if rs_grids is None else _cam(rs_grids, c),
-                         finalize=False)
+                         finalize=False, camera=cam0 + c)
         for c in range(len(raws))
     ]
     return _stack([o[0] for o in outs]), _stack([o[1] for o in outs])
 
 
 def _finish(cfg, blobs, det, colors7, packed_cams, params, colors7_refs, marks):
-    return finish_on_device_batched(blobs, det, colors7, colors7_refs, packed_cams, marks,
-                                    stack_finish_params(params, cfg.n_cams))
+    with RECORDER.span("step.finisher"):
+        return finish_on_device_batched(blobs, det, colors7, colors7_refs, packed_cams,
+                                        marks, stack_finish_params(params, cfg.n_cams))
 
 
 def batched_step(cfg: MultiCamConfig):
@@ -318,9 +325,10 @@ def percam_core_step(cfg: MultiCamConfig):
     with ``params_for_cam`` first."""
 
     def step(raw, packed_cam, field_scale, field_offset, colors7, tracked, params,
-             rs_grid=None):
+             rs_grid=None, camera=None):
         return _single_cam_step(cfg, raw, packed_cam, field_scale, field_offset,
-                                colors7, tracked, params, rs_grid=rs_grid, finalize=False)
+                                colors7, tracked, params, rs_grid=rs_grid, finalize=False,
+                                camera=camera)
 
     return step
 
