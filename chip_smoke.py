@@ -4180,7 +4180,9 @@ STAGES_SLICE3 = (
     ("parallel.multicam", "finalize_batched", "finalize (NMS x4, ids over the camera axis)"),
     ("models.detector", "clipping_nms", "  clipping NMS (64-step loop)"),
     ("models.detector", "_guarded_kmeans2", "id 2-means, first pass + finisher (24 rounds)"),
-    ("parallel.multicam", "finish_on_device_batched", "on-device finishing (4 cameras)"),
+    # the finisher replays as one CUDA graph: its inner stages run (and
+    # read) only in the capture, so it is timed whole
+    ("parallel.multicam", "_finish", "on-device finishing (4 cameras, graph replay)"),
     ("models.device_finish", "update_colors_device", "  color update (2 k-means)"),
     ("app.multicam_app", "to_torch", "host->device inputs"),
     ("app.multicam_app", "to_numpy", "device->host fetch"),

@@ -7,13 +7,15 @@ src/blobs/hypothesis.cpp:83-94,208-270). The early-exit k-means
 ``while_loop`` runs its ``iters`` rounds; a finished group is never
 updated again, so the result equals the early-exit one. The camera-batched
 finisher (the JAX package's vmap) runs the per-camera finisher camera by
-camera, so its results are the per-camera ones exactly.
+camera, so its results are the per-camera ones exactly; on a card
+``FinisherGraph`` replays it as one CUDA graph an input signature.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..utils.state import _flatten, _rebuild
 from ..utils.timing import RECORDER
 from .camera import field2image_packed, goal_boundary_width, image2field_packed
 from .detector import _sqnorm, _sqnorm_i, _tables, estimate_bot_ids
@@ -392,3 +394,83 @@ def finish_on_device_batched(blobs, det, colors7, colors7_refs, packed_cams, mar
             _cam(blobs, c), _cam(det, c), colors7[c], colors7_refs[c], packed_cams[c],
             _cam(marks, c), _cam(params, c)))
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def finish_signature(args) -> tuple:
+    """The key of a captured finisher: every input leaf's path, shape, dtype
+    and device, and the recorder's mode (off, on, on with device counting),
+    which decides whether the loops keep their ``active`` tensors."""
+    return (tuple((p, tuple(t.shape), t.dtype, t.device) for p, t in _flatten(args)),
+            RECORDER.on, RECORDER.device_counting)
+
+
+class _CapturedFinisher:
+    """One signature's CUDA graph of ``finish_on_device_batched``, its static
+    input buffers and outputs, and the k-means rounds it logged."""
+
+    def __init__(self, args, device):
+        self._static = {p: torch.empty(t.shape, dtype=t.dtype, device=device)
+                        for p, t in _flatten(args)}
+        self._args = _rebuild(args, self._static)
+        self._load(args)
+        # warm up on the capture's stream (cuBLAS's handle, the detection
+        # tables), then capture there
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side), RECORDER.collect_rounds():
+            finish_on_device_batched(*self._args)
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with RECORDER.collect_rounds() as rounds, torch.cuda.graph(
+                self.graph, stream=side, capture_error_mode="thread_local"):
+            self._out = finish_on_device_batched(*self._args)
+        self._rounds = rounds
+
+    def _load(self, args) -> None:
+        for p, t in _flatten(args):
+            self._static[p].copy_(t)
+
+    def replay(self, args) -> dict:
+        self._load(args)
+        self.graph.replay()
+        RECORDER.replay_rounds(self._rounds)
+        # clones: the caller may read them after the next replay
+        return {k: v.clone() for k, v in self._out.items()}
+
+
+class FinisherGraph:
+    """``finish_on_device_batched`` replayed as one CUDA graph an input
+    signature (``finish_signature``), where launching its thousands of
+    small operations one by one would hold the host.
+
+    On a CUDA device, outside another stream capture, the first call of a
+    signature warms the finisher up and captures it; every call copies its
+    inputs into that signature's static buffers, replays the graph and
+    returns clones of the outputs. Anywhere else it calls
+    ``finish_on_device_batched``. The graph runs the eager call's kernels
+    in its order, so the outputs are bit-equal. ``captures``, ``replays``
+    and ``eager`` count the calls of each kind, as do the recorder's
+    ``finisher.graph.capture``, ``finisher.graph.replay`` and
+    ``finisher.eager``. A step builds its own, so a rebuilt step drops its
+    graphs."""
+
+    def __init__(self):
+        self.captures = self.replays = self.eager = 0
+        self._graphs = {}
+
+    def __call__(self, blobs, det, colors7, colors7_refs, packed_cams, marks, params):
+        args = (blobs, det, colors7, colors7_refs, packed_cams, marks, params)
+        device = packed_cams.device
+        if device.type != "cuda" or torch.cuda.is_current_stream_capturing():
+            self.eager += 1
+            RECORDER.count("finisher.eager", 1)
+            return finish_on_device_batched(*args)
+        key = finish_signature(args)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = _CapturedFinisher(args, device)
+            self.captures += 1
+            RECORDER.count("finisher.graph.capture", 1)
+        self.replays += 1
+        RECORDER.count("finisher.graph.replay", 1)
+        return graph.replay(args)

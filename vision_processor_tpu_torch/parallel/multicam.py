@@ -10,7 +10,9 @@ camera axis: the blob machine and hypothesis search run camera by camera
 (``_single_cam_step``, the same kernels as the one-camera path), then one
 pass over the stacked cameras completes them (``finalize_batched``: the
 clipping NMS, the ball clip, the id estimate folded over the camera axis)
-and, with field markings, the on-device finisher.
+and, with field markings, the on-device finisher (on a card one CUDA
+graph replay, ``models/device_finish.py FinisherGraph``, one for each
+step).
 
 ``resample_grids`` is the JAX package's ``resample_grids_traced``
 (nothing is traced here). Every step takes the cached sampling grids
@@ -41,7 +43,9 @@ import torch.distributed as dist
 from ..models.detector import (
     TWO_PI, DetectorConfig, detect, estimate_bot_ids, finalize_detections_batched,
 )
-from ..models.device_finish import finish_on_device_batched, stack_finish_params
+from ..models.device_finish import (
+    FinisherGraph, finish_on_device_batched, stack_finish_params,
+)
 from ..ops.pipeline import BlobMachineConfig, blob_machine
 from ..utils.timing import RECORDER
 
@@ -264,10 +268,12 @@ def _cores(cfg, raws, packed_cams, field_scales, field_offsets, colors7, tracked
     return _stack([o[0] for o in outs]), _stack([o[1] for o in outs])
 
 
-def _finish(cfg, blobs, det, colors7, packed_cams, params, colors7_refs, marks):
+def _finish(finisher, cfg, blobs, det, colors7, packed_cams, params, colors7_refs,
+            marks):
+    """The on-device finisher through the step's ``FinisherGraph``."""
     with RECORDER.span("step.finisher"):
-        return finish_on_device_batched(blobs, det, colors7, colors7_refs, packed_cams,
-                                        marks, stack_finish_params(params, cfg.n_cams))
+        return finisher(blobs, det, colors7, colors7_refs, packed_cams, marks,
+                        stack_finish_params(params, cfg.n_cams))
 
 
 def batched_step(cfg: MultiCamConfig):
@@ -278,7 +284,9 @@ def batched_step(cfg: MultiCamConfig):
     camera. ``rs_grids`` (from ``make_resample_grids``) replays the cached
     projection geometry; without it each camera is resampled in line.
     Returns (blobs, det, summary), plus ``fin`` with
-    ``colors7_refs``/``marks``."""
+    ``colors7_refs``/``marks``. The finisher replays as a CUDA graph on a
+    card (``step.finisher``, a ``FinisherGraph``)."""
+    finisher = FinisherGraph()
 
     def step(raws, packed_cams, field_scales, field_offsets, colors7, prev_summary,
              params, rs_grids=None, prev_prev_summary=None, colors7_refs=None,
@@ -292,9 +300,11 @@ def batched_step(cfg: MultiCamConfig):
                                         params["ball_radius"])
         if marks is None:
             return blobs, det, summary
-        fin = _finish(cfg, blobs, det, colors7, packed_cams, params, colors7_refs, marks)
+        fin = _finish(finisher, cfg, blobs, det, colors7, packed_cams, params,
+                      colors7_refs, marks)
         return blobs, det, summary, fin
 
+    step.finisher = finisher
     return step
 
 
@@ -302,7 +312,9 @@ def batched_step_host_tracked(cfg: MultiCamConfig):
     """Like ``batched_step``, with the tracked prior supplied by the host
     (the production app builds it from the UDP tracker every frame-set, so
     host-side id assignment stays authoritative). Returns (blobs, det), plus
-    ``fin`` with ``colors7_refs``/``marks``."""
+    ``fin`` with ``colors7_refs``/``marks``; ``step.finisher`` as in
+    ``batched_step``."""
+    finisher = FinisherGraph()
 
     def step(raws, packed_cams, field_scales, field_offsets, colors7, tracked, params,
              rs_grids=None, colors7_refs=None, marks=None):
@@ -312,9 +324,11 @@ def batched_step_host_tracked(cfg: MultiCamConfig):
                                   params["ball_radius"])
         if marks is None:
             return blobs, det
-        fin = _finish(cfg, blobs, det, colors7, packed_cams, params, colors7_refs, marks)
+        fin = _finish(finisher, cfg, blobs, det, colors7, packed_cams, params,
+                      colors7_refs, marks)
         return blobs, det, fin
 
+    step.finisher = finisher
     return step
 
 
@@ -336,16 +350,19 @@ def percam_core_step(cfg: MultiCamConfig):
 def staggered_tail_step(cfg: MultiCamConfig):
     """The stacked tail of the staggered plan: ``finalize_batched`` and the
     on-device finisher over the stacked per-camera core outputs. With
-    ``marks=None`` it is the finalize only and ``fin`` is None."""
+    ``marks=None`` it is the finalize only and ``fin`` is None;
+    ``tail.finisher`` as in ``batched_step``."""
+    finisher = FinisherGraph()
 
     def tail(blobs, det, colors7, packed_cams, params, colors7_refs=None, marks=None):
         det, _ = finalize_batched(blobs, det, colors7, params["clipping_tolerance"],
                                   params["ball_radius"])
         if marks is None:
             return det, None
-        return det, _finish(cfg, blobs, det, colors7, packed_cams, params, colors7_refs,
-                            marks)
+        return det, _finish(finisher, cfg, blobs, det, colors7, packed_cams, params,
+                            colors7_refs, marks)
 
+    tail.finisher = finisher
     return tail
 
 

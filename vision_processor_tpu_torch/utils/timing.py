@@ -21,7 +21,8 @@ src/opencl.cpp:94-101, src/main.cpp:363-366):
   loop round's ``active`` tensor (``rounds``), reduces them once a
   frame-set (``reduce_rounds``, a few launches, no sync) and reads them
   with one copy after the frame-set's own device-to-host copy
-  (``read_rounds``).
+  (``read_rounds``). A loop captured in a CUDA graph logs its rounds once
+  (``collect_rounds``), and each replay records them (``replay_rounds``).
 * ``StageTimer`` — ``stage`` is a span of the recorder; ``measure`` times
   one call up to a device fence, on a CUDA device with a pair of CUDA
   events read by ``device_ms``.
@@ -159,12 +160,38 @@ class Recorder:
         at whose start some row was active."""
         if not self.on:
             return None
+        collected = getattr(self._local, "collected", None)
+        if collected is not None:
+            kept = [] if self.device_counting else None
+            collected.append((name, iters, kept))
+            return kept
         self.count(name + ".rounds", iters)
         if not self.device_counting:
             return None
         kept = []
         self._rounds.append((self.frame_set, name + ".live_rounds", kept))
         return kept
+
+    @contextlib.contextmanager
+    def collect_rounds(self):
+        """Within the block, on this thread, ``rounds`` records nothing: it
+        logs each loop as (name, iters, kept) in the list the block gets,
+        ``kept`` being the list it returns. ``replay_rounds`` records such a
+        log later, as ``rounds`` would have: for loops captured in a CUDA
+        graph, whose every replay refreshes the kept tensors."""
+        prev = getattr(self._local, "collected", None)
+        self._local.collected = collected = []
+        try:
+            yield collected
+        finally:
+            self._local.collected = prev
+
+    def replay_rounds(self, collected: list) -> None:
+        """Record the loops of a ``collect_rounds`` log in this frame-set."""
+        for name, iters, kept in collected:
+            out = self.rounds(name, iters)
+            if out is not None and kept is not None:
+                out.extend(kept)
 
     def reduce_rounds(self) -> None:
         """Enqueue the reduction of the kept ``active`` tensors: one stack,
